@@ -7,8 +7,9 @@ reference.  Layout follows the JAX package module for module:
   - NumPy setup (config, namelist, atmosphere, gas, optics, ..., data/)
     carried across unchanged apart from imports, so the package imports
     without JAX;
-  - solver/   the torch solver (delta-M, the lane-resident flux path,
-              solve_rte);
+  - solver/   the torch solver (delta-M, Planck, the thermal source, the
+              lane-resident flux path, solve_rte); ops/ its lane-layout
+              linear algebra;
   - kernels/  hand-written CUDA kernels for Hopper (csrc/*.cu), each with
               a plain torch version of the same math beside it;
   - pipeline / api / cli  the spectral loop and the sbdart-compatible CLI.

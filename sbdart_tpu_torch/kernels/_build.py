@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels at first use.
 
-Route: `nvcc` compiles kernels/csrc/*.cu for sm_90a into one shared
-library with a plain C interface, and `ctypes` binds it.  No PyTorch
-header is compiled, so the build takes seconds, and no `ninja` is needed.
+Route: `nvcc` compiles each kernels/csrc/*.cu for sm_90a, all sources
+at once in parallel processes, links the objects into one shared library
+with a plain C interface, and `ctypes` binds it.  No PyTorch header is
+compiled, so the build takes seconds, and no `ninja` is needed.
 The launchers take raw device pointers, sizes and the current CUDA stream,
 and return the launch's `cudaGetLastError()` code.
 
@@ -25,12 +26,14 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("eig_n2_deltam.cu", "blocktri_rt_n2.cu")
+SOURCES = ("eig_n2_deltam.cu", "eig_n2_scatter.cu", "eig_beam.cu",
+           "blocktri_rt_n2.cu", "blocktri_rt.cu")
+HEADERS = ("eig_n2_chain.cuh", "solve_step.cuh")
 # IEEE sqrt/div/exp (no --use_fast_math) and no contracted multiply-adds:
 # the kernels round where their plain torch versions do.
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-    "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -57,7 +60,7 @@ def _nvcc() -> str:
 
 def _library_path() -> Path:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"libsbdart_torch_kernels_{h.hexdigest()[:16]}.so"
@@ -72,18 +75,29 @@ def build() -> tuple[Path, float]:
         return out, 0.0
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
+    nvcc = _nvcc()
+    objs = [tmp.with_name(f"{tmp.name}.{Path(s).stem}.o") for s in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+            for s, o in zip(SOURCES, objs)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    steps = list(zip(cmds, [p.returncode for p in procs], logs))
+    if all(rc == 0 for _, rc, _ in steps):
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        steps.append((link, proc.returncode, proc.stdout + proc.stderr))
     seconds = time.perf_counter() - t0
-    (out.parent / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
+    (out.parent / "build.log").write_text("".join(
+        " ".join(c) + "\n" + log for c, _, log in steps))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    failed = [(c, rc, log) for c, rc, log in steps if rc != 0]
+    if failed:
+        c, rc, log = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(c)}\n{log}")
     os.replace(tmp, out)
     return out, seconds
 
@@ -97,8 +111,14 @@ def library() -> ctypes.CDLL:
         [_P] * 12 + [_I, _I, _I, _P, _P]
     )
     lib.sbdart_eig_n2_deltam.restype = _I
+    lib.sbdart_eig_n2_scatter.argtypes = [_P] * 9 + [_I, _I, _P, _P]
+    lib.sbdart_eig_n2_scatter.restype = _I
+    lib.sbdart_eig_beam.argtypes = [_P] * 10 + [_I, _I, _I, _I, _P, _P]
+    lib.sbdart_eig_beam.restype = _I
     lib.sbdart_blocktri_rt_n2.argtypes = [_P] * 8 + [_I, _I, _P]
     lib.sbdart_blocktri_rt_n2.restype = _I
+    lib.sbdart_blocktri_rt.argtypes = [_P] * 8 + [_I, _I, _I, _P]
+    lib.sbdart_blocktri_rt.restype = _I
     lib.sbdart_cuda_error_string.argtypes = [_I]
     lib.sbdart_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,0 +1,152 @@
+"""B5: fused SETMTX + SOLVE0 for general n (nstr 8/12/16, N = 4, 6, 8),
+block-Thomas over layers with the full W history.
+
+Port of sbdart_tpu/pallas/blocktri.py:_rt_kernel (reached via
+block_thomas_rt for n >= 4).  The 2N x 2N blocks are assembled on the fly
+from G+-, the per-mode transmissions ee and the Lambertian surface
+operator (blocktri.py:228-233):
+
+    diag_l  = [[gm_l, gp_l e_l], [gp_l e_l, gm_l]]
+              (last layer's bottom rows: - [R (gm e), R gp])
+    lower_l = -[[gm_{l-1} e, gp_{l-1}], [0, 0]]          (l >= 1)
+    upper_l = -[[0, 0], [gp_{l+1}, gm_{l+1} e]]          (l <= L-2)
+
+The forward sweep solves (diag - lower W_{l-1}) [W_l | y_l] = [upper |
+r - lower y_{l-1}] with `solve_step`; the backward sweep takes
+x_l = y_l - W_l x_{l+1}.  `block_thomas_rt` launches the CUDA kernel
+csrc/blocktri_rt.cu on CUDA tensors and runs `block_thomas_rt_plain` on
+CPU tensors.
+
+Inputs gp/gm [L, N, N, B], ee [L, N, B], refl [N, N, B], rhs [L, 2N, B];
+returns xs [L, 2N, B].
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sbdart_tpu_torch.ops.lane import lmatmul as _mm
+from sbdart_tpu_torch.ops.lane import lmatvec as _mv
+
+
+def solve_step(dt, rhs_aug):
+    """Solve dt X = rhs_aug for dt [..., m, m, B], rhs_aug [..., m, r, B]
+    (rows at dim -3), as pallas/blocktri.py:_solve_step: branchless GE
+    with implicit pivoting (the pivot is the first row of maximal |leading
+    entry| among rows not yet eliminated) and shrinking elimination (each
+    step drops its pivot column).  Returns X [..., m, r, B]."""
+    m = dt.shape[-3]
+    aug = torch.cat([dt, rhs_aug], dim=-2)             # [..., m, m+r, B]
+    rows = torch.arange(m, device=dt.device)[:, None]  # [m, 1]
+    elim = torch.zeros(aug[..., 0, :].shape, dtype=torch.bool,
+                       device=dt.device)               # [..., m, B]
+    prows = []
+    for _ in range(m):
+        lead = aug[..., 0, :]                          # [..., m, B]
+        col = torch.where(elim, -1.0, torch.abs(lead))
+        piv = torch.argmax(col, dim=-2)                # [..., B]
+        sel = rows == piv[..., None, :]                # [..., m, B]
+        piv_val = torch.sum(torch.where(sel, lead, 0.0), dim=-2)
+        tail = aug[..., 1:, :]                         # [..., m, w-1, B]
+        row_t = torch.sum(torch.where(sel[..., None, :], tail, 0.0), dim=-3)
+        inv_piv = 1.0 / piv_val
+        factor = torch.where(elim | sel, 0.0, lead * inv_piv[..., None, :])
+        aug = tail - factor[..., None, :] * row_t[..., None, :, :]
+        elim = elim | sel
+        prows.append((piv_val, row_t))
+    # back substitution on the saved pivot rows: prows[i] = (pivot value,
+    # [a_{i,i+1..m-1}, rhs_i]), so a_ij sits at offset j - i - 1 and the
+    # rhs at m - i - 1
+    x = [None] * m
+    for i in reversed(range(m)):
+        pv, rest = prows[i]
+        s = rest[..., m - i - 1:, :]
+        for j in range(i + 1, m):
+            s = s - rest[..., j - i - 1, None, :] * x[j]
+        x[i] = s / pv[..., None, :]
+    return torch.stack(x, dim=-3)                      # [..., m, r, B]
+
+
+def block_thomas_rt_plain(gp, gm, ee, refl, rhs):
+    """Plain torch version of the B5 kernel, any device and float dtype:
+    a Python loop over layers on [2N, 2N, B] blocks
+    (pallas/blocktri.py:_rt_kernel), sums over a block index in order."""
+    nlyr, n, _, b = gp.shape
+    m = 2 * n
+
+    def layer_mats(l):
+        gpl, gml, eel = gp[l], gm[l], ee[l]
+        return gpl, gml, gpl * eel[None], gml * eel[None]
+
+    w_prev = torch.zeros((m, m, b), dtype=gp.dtype, device=gp.device)
+    y_prev = torch.zeros((m, b), dtype=gp.dtype, device=gp.device)
+    ws, ys = [], []
+    for l in range(nlyr):
+        gpl, gml, gpe, gme = layer_mats(l)
+        d_top = torch.cat([gml, gpe], dim=1)           # [N, 2N, B]
+        last = 1.0 if l == nlyr - 1 else 0.0
+        d_bot = torch.cat([gpe, gml], dim=1) - last * torch.cat(
+            [_mm(refl, gme), _mm(refl, gpl)], dim=1)
+
+        _, _, _, gmem = layer_mats(max(l - 1, 0))
+        gpm = gp[max(l - 1, 0)]
+        neg_low = -(1.0 if l > 0 else 0.0)
+        lt = neg_low * torch.cat([gmem, gpm], dim=1)   # [N, 2N, B]
+        dt = torch.cat([d_top - _mm(lt, w_prev), d_bot])
+        r_l = rhs[l]
+        rt = torch.cat([r_l[:n] - _mv(lt, y_prev), r_l[n:]])
+
+        gpp, _, _, gmep = layer_mats(min(l + 1, nlyr - 1))
+        neg_up = -(1.0 if l < nlyr - 1 else 0.0)
+        ub = neg_up * torch.cat([gpp, gmep], dim=1)    # [N, 2N, B]
+        upper = torch.cat([torch.zeros_like(ub), ub])
+
+        sol = solve_step(dt, torch.cat([upper, rt[:, None, :]], dim=1))
+        w_prev, y_prev = sol[:, :m], sol[:, m]
+        ws.append(w_prev)
+        ys.append(y_prev)
+
+    xs = [None] * nlyr
+    xs[-1] = y_prev
+    for l in range(nlyr - 2, -1, -1):
+        xs[l] = ys[l] - _mv(ws[l], xs[l + 1])
+    return torch.stack(xs, dim=0)
+
+
+def block_thomas_rt(gp, gm, ee, refl, rhs):
+    """B5 solve: the CUDA kernel on CUDA tensors (float32 only), the plain
+    torch version on CPU tensors.  Shapes as in the module doc."""
+    if gp.device.type == "cpu":
+        return block_thomas_rt_plain(gp, gm, ee, refl, rhs)
+    from sbdart_tpu_torch.kernels import _build
+
+    nlyr, n, _, b = gp.shape
+    if n not in (4, 6, 8):
+        raise ValueError(f"block_thomas_rt: the kernel takes N = 4, 6 or 8, "
+                         f"got {n}")
+    want = {"gp": (nlyr, n, n, b), "gm": (nlyr, n, n, b), "ee": (nlyr, n, b),
+            "refl": (n, n, b), "rhs": (nlyr, 2 * n, b)}
+    for name, t in zip(want, (gp, gm, ee, refl, rhs)):
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"block_thomas_rt: {name} has shape "
+                             f"{tuple(t.shape)}, expected {want[name]}")
+    ins = [t.contiguous() for t in (gp, gm, ee, refl, rhs)]
+    _build.require_cuda_f32("block_thomas_rt", *ins)
+    m = 2 * n
+    new = dict(device=gp.device, dtype=torch.float32)
+    ws = torch.empty((nlyr, m * m, b), **new)          # W history scratch
+    ys = torch.empty((nlyr, m, b), **new)
+    xs = torch.empty((nlyr, m, b), **new)
+    lib = _build.library()
+    with torch.cuda.device(gp.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.sbdart_blocktri_rt(
+            *(t.data_ptr() for t in ins), ws.data_ptr(), ys.data_ptr(),
+            xs.data_ptr(), nlyr, n, b, stream,
+        )
+    block_thomas_rt.launches += 1
+    _build.check(code, "block_thomas_rt")
+    return xs
+
+
+block_thomas_rt.launches = 0

@@ -193,7 +193,7 @@ def eig_beam_deltam_scatter_n2_plain(dtau, ssalb, pmom5, scale, mu0, tab,
 
 def _front(c, dtau, ssalb, pmom5, scale, mu0, use_deltam):
     """B1's math with the static coefficients `c` (see _consts)."""
-    nlyr, b = dtau.shape
+    b = dtau.shape[1]
     ss_raw = torch.clamp(ssalb, 0.0, c["ss_hi"])
     pm = [pmom5[:, q] for q in range(5)]
     mu0p = mu0.reshape(1, b)
@@ -211,6 +211,17 @@ def _front(c, dtau, ssalb, pmom5, scale, mu0, use_deltam):
         ss = ss_raw
         gl = pm[:4]
 
+    kk, gp, gm, zp, zm = _scatter_chain(c, ss, gl, scl, mu0p)
+    ee = torch.exp(-kk * dts[:, None, :])
+    return kk, gp, gm, zp, zm, dts, ee
+
+
+def _scatter_chain(c, ss, gl, scl, mu0p):
+    """Scattering build + beam RHS + n = 2 chain + beam solve, shared by
+    B1 and B3 (pallas/eig.py:792-832): delta-M-scaled ssalb [L, B] and
+    moments gl (4 planes [L, B]), scale/mu0 [1, B] -> kk [L, 2, B],
+    gp/gm [L, 2, 2, B], zp/zm [L, 2, B]."""
+    nlyr, b = ss.shape
     cl = [0.5 * float(2 * q + 1) * ss * gl[q] for q in range(4)]
     cpp, cpm = [], []
     for ij in range(4):
@@ -249,8 +260,7 @@ def _front(c, dtau, ssalb, pmom5, scale, mu0, use_deltam):
     gm = torch.stack(gm, dim=1).reshape(nlyr, 2, 2, b)
     zp = torch.stack(zp, dim=1)
     zm = torch.stack(zm, dim=1)
-    ee = torch.stack([torch.exp(-kk1 * dts), torch.exp(-kk2 * dts)], dim=1)
-    return kk, gp, gm, zp, zm, dts, ee
+    return kk, gp, gm, zp, zm
 
 
 def eig_beam_deltam_scatter_n2(dtau, ssalb, pmom5, scale, mu0, tab,

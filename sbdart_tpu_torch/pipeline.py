@@ -6,10 +6,13 @@ moved to the device once; it is then solved in fixed-size wavelength
 CHUNKS, each ONE batched solve over the (chunk, k) axes.  k-weighting and
 spectral integration happen on the host (outputs.py) where they are cheap.
 
-This slice runs solar-only spectra.  A run whose thermal mask turns the
-Planck source on (any sample beyond THERMAL_WL_UM under the default
-nothrm = -1, or nothrm = 0) raises NotImplementedError rather than
-dropping the source.
+Thermal handling, as the reference's: when any sample is thermal (beyond
+THERMAL_WL_UM under the default nothrm = -1, or every sample under
+nothrm = 0), every chunk is solved with the Planck source on and a
+per-sample mask folds it away on solar samples (temperatures of 1e-4 K),
+so one configuration covers the whole spectrum.  Thermal outputs are
+band-integrated, so thermal samples feed the beam as fbeam x band width
+and are converted back to per-um densities at the end.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import torch
 from sbdart_tpu_torch.atmosphere import Profile, build_profile
 from sbdart_tpu_torch.clouds import apply_cloud_humidity, load_usrcld_dat
 from sbdart_tpu_torch.config import Config
-from sbdart_tpu_torch.convert import deck_to_torch
+from sbdart_tpu_torch.convert import deck_to_torch, rte_inputs_to_torch
 from sbdart_tpu_torch.dtypes import default_device, default_dtype, parse_dtype
 from sbdart_tpu_torch.optics import build_optical_deck
 from sbdart_tpu_torch.solar import (
@@ -63,6 +66,23 @@ class SpectralResult:
 
     def level_index(self, z_km: float) -> int:
         return int(np.argmin(np.abs(self.profile.z - z_km)))
+
+
+def band_edges_wavenumber(wl: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Per-sample wavenumber band edges (midpoints of the wl grid;
+    pipeline.py:70-86)."""
+    nu = 1.0e4 / wl
+    if len(wl) == 1:
+        half = 0.5 * max(nu[0] * 1e-3, 1.0)
+        return nu - half, nu + half
+    mid = 0.5 * (nu[1:] + nu[:-1])
+    lo_e = np.empty_like(nu)
+    hi_e = np.empty_like(nu)
+    hi_e[0] = nu[0] + abs(nu[0] - mid[0])
+    lo_e[-1] = nu[-1] - abs(mid[-1] - nu[-1])
+    lo_e[:-1] = mid
+    hi_e[1:] = mid
+    return np.minimum(lo_e, hi_e), np.maximum(lo_e, hi_e)
 
 
 def _trapz_weights(wl: np.ndarray) -> np.ndarray:
@@ -121,8 +141,8 @@ def run_pipeline(
     nzen = int(cfg.nzen)
     want_rad = cfg.iout in (5, 6, 20, 21, 22, 23) and nzen > 0
     thermal = thermal_mask(cfg, wl)
-    why = unsupported(nstr=cfg.nstr, planck=bool(thermal.any()),
-                      onlyfl=not want_rad, brdf=None)
+    any_thermal = bool(thermal.any())
+    why = unsupported(nstr=cfg.nstr, onlyfl=not want_rad, brdf=None)
     if why is not None:
         raise NotImplementedError(
             f"sbdart_tpu_torch.run_pipeline does not port {why} yet"
@@ -151,9 +171,18 @@ def run_pipeline(
     fbeam = e0 * solfac                    # W/m^2/um at TOA
     alb = surface_albedo(cfg, wl, albedo_table)
 
+    wvnlo, wvnhi = band_edges_wavenumber(wl)
+    band_dlam = 1.0e4 / wvnlo - 1.0e4 / wvnhi   # band width in um
+    temper = profile.t                      # [nlev] TOA-first
+    btemp = cfg.btemp if cfg.btemp > 0 else float(temper[-1])
+    ttemp = cfg.ttemp if cfg.ttemp > 0 else float(temper[0])
+    if cfg.spowder:
+        # sub-surface powder slab (optics.py): one extra solver layer at
+        # the surface temperature; outputs below the surface are dropped
+        temper = np.concatenate([temper, [btemp]])
+
     # the whole spectral problem goes to the device once
     dev_deck = deck_to_torch(deck, device, dtype)
-    fbeam_d = torch.as_tensor(fbeam * (csza > 0), dtype=dtype, device=device)
     alb_d = torch.as_tensor(alb, dtype=dtype, device=device)
 
     nlev = nlyr + 1
@@ -172,12 +201,29 @@ def run_pipeline(
             idx = np.concatenate([idx, np.full(chunk - len(idx), nwl - 1)])
         idx_d = torch.as_tensor(idx, device=device)
 
+        # branchless thermal mask: solar samples get temperatures of
+        # 1e-4 K (Planck == 0); thermal samples take the beam per band
+        tmask = thermal[idx]
+        fbeam_c = fbeam[idx] * np.where(tmask, band_dlam[idx], 1.0)
+        thermal_kw = {}
+        if any_thermal:
+            thermal_kw = dict(planck=True, **rte_inputs_to_torch(
+                device, dtype,
+                temper=np.where(tmask[:, None, None], temper[None, None, :],
+                                1e-4),
+                wvnlo=wvnlo[idx][:, None], wvnhi=wvnhi[idx][:, None],
+                btemp=np.where(tmask, btemp, 1e-4)[:, None],
+                ttemp=np.where(tmask, ttemp, 1e-4)[:, None],
+                temis=cfg.temis,
+            ))
+
         out = solve_rte(
             dev_deck.dtau[idx_d],
             dev_deck.ssalb[idx_d],
             dev_deck.pmom[idx_d][:, None],
             nstr=cfg.nstr,
-            fbeam=fbeam_d[idx_d][:, None],
+            fbeam=torch.as_tensor(fbeam_c * (csza > 0), dtype=dtype,
+                                  device=device)[:, None],
             umu0=csza,
             phi0=cfg.phi0,
             fisot=cfg.fisot,
@@ -187,13 +233,16 @@ def run_pipeline(
             corint=cfg.corint,
             dtype=dtype,
             device=device,
+            **thermal_kw,
         )
 
         wk = deck.wk[idx]                  # [chunk, nk]
+        # thermal outputs are per band; convert to per-um spectral density
+        conv = np.where(tmask, 1.0 / band_dlam[idx], 1.0)[:, None]
 
         def acc(dst, field):
             v = field.cpu().numpy()        # [chunk, nk, nlev(+powder)]
-            v = np.einsum("ck,ckv->cv", wk, v)
+            v = np.einsum("ck,ckv->cv", wk, v) * conv
             dst[s:e] = v[: e - s, :nlev]
 
         acc(fdir, out.rfldir)

@@ -1,18 +1,21 @@
 """solve_rte — the monochromatic discrete-ordinates solve (torch port of
 sbdart_tpu/solver/disort.py).
 
-Same signature as the reference, plus `device`.  This slice of the port
-runs the main path only: flux-only (onlyfl), Lambertian surface, nstr=4,
-no thermal source, through the lane-resident flux path
-(solver/fluxlane.py) and its two CUDA kernels.  Every other combination
-raises NotImplementedError naming the ROADMAP slice that brings it.
+Same signature as the reference, plus `device`.  The port runs flux-only
+(onlyfl) solves on a Lambertian surface, with or without the thermal
+source, for every nstr whose N = nstr/2 is even and at most 8 (nstr 4, 8,
+12, 16: the reference's `lane_ok` test, disort.py:118-123), through the
+lane-resident flux path (solver/fluxlane.py) and its CUDA kernels.  Every
+other combination raises NotImplementedError naming the ROADMAP slice
+that brings it.
 
 Routes (`eig_method`):
   * "auto": float32 runs the kernel wrappers, which launch the CUDA
     kernels on CUDA tensors (and take the plain torch versions on CPU
     tensors); float64 runs the plain torch versions on whatever device
     the tensors are on, as the reference never sends f64 to its
-    f32-only kernels.
+    f32-only kernels, with 6 Jacobi sweeps (the reference lane route's)
+    where the float32 kernel runs 3.
   * "plain": the plain torch versions, any dtype and device.
 
 Outputs at ALL layer boundaries (the pipeline interpolates user levels).
@@ -39,21 +42,20 @@ class RteOutputs(NamedTuple):
 EIG_METHODS = ("auto", "plain")
 
 
-def unsupported(*, nstr: int, planck: bool, onlyfl: bool, brdf) -> str | None:
-    """The ROADMAP slice that a request needs, or None when this slice
-    (nstr=4 solar flux, Lambertian) serves it."""
-    if planck:
-        return ("thermal source (planck=True): ROADMAP Queue A item 6, "
-                "the nstr=4 thermal slice")
+def unsupported(*, nstr: int, onlyfl: bool, brdf) -> str | None:
+    """The ROADMAP slice that a request needs, or None when the port
+    serves it (flux-only, Lambertian, N = nstr/2 even and <= 8, with or
+    without the thermal source)."""
     if not onlyfl:
         return ("radiances (onlyfl=False): ROADMAP Queue A item 9, "
                 "the radiance slice")
     if brdf is not None:
         return ("BRDF surface: ROADMAP Queue A item 9, the radiance/BRDF "
                 "slice")
-    if nstr != 4:
-        return (f"nstr={nstr}: ROADMAP Queue A item 8, the nstr 8/16 "
-                "slice (general-n kernels B4-B6)")
+    n = nstr // 2
+    if n % 2 or n > 8 or nstr % 2:
+        return (f"nstr={nstr} (N = nstr/2 odd or above 8): ROADMAP Queue A "
+                "item 7, the generic path")
     return None
 
 
@@ -86,7 +88,7 @@ def solve_rte(
     bvp_method: str = "auto",
     device=None,
 ) -> RteOutputs:
-    why = unsupported(nstr=nstr, planck=planck, onlyfl=onlyfl, brdf=brdf)
+    why = unsupported(nstr=nstr, onlyfl=onlyfl, brdf=brdf)
     if why is not None:
         raise NotImplementedError(
             f"sbdart_tpu_torch.solve_rte does not port {why} yet"
@@ -96,6 +98,8 @@ def solve_rte(
             f"eig_method must be one of {EIG_METHODS} and bvp_method 'auto' "
             f"(got {eig_method!r}, {bvp_method!r})"
         )
+    if planck and temper is None:
+        raise ValueError("planck=True requires temper")
     if device is None:
         device = (dtauc.device if isinstance(dtauc, torch.Tensor)
                   else default_device())
@@ -116,10 +120,20 @@ def solve_rte(
     ssalb_in = ssalb_in.expand(batch + (nlyr,))
     pmom = pmom.expand(batch + pmom.shape[-2:])
 
-    from sbdart_tpu_torch.solver.fluxlane import solve_rte_flux_lane
+    from sbdart_tpu_torch.kernels.eig_beam import SWEEPS_F32, SWEEPS_F64
+    from sbdart_tpu_torch.solver.fluxlane import (
+        PlanckInputs,
+        solve_rte_flux_lane,
+    )
 
+    pk = None
+    if planck:
+        pk = PlanckInputs(t(temper).expand(batch + (nlyr + 1,)),
+                          *(t(x).expand(batch)
+                            for x in (wvnlo, wvnhi, btemp, ttemp, temis)))
     kernels = eig_method == "auto" and dtype == torch.float32
     return solve_rte_flux_lane(
         dtauc, ssalb_in, pmom, fbeam=fbeam, umu0=umu0, fisot=fisot,
-        albedo=albedo, deltam=deltam, kernels=kernels,
+        albedo=albedo, deltam=deltam, nstr=nstr, planck=pk, kernels=kernels,
+        sweeps=SWEEPS_F32 if dtype == torch.float32 else SWEEPS_F64,
     )

@@ -1,8 +1,9 @@
 """Static angular tables of the discrete-ordinates eigenproblem (NumPy).
 
-The n = 2 eigensolve itself is fused into the front-end kernel
-(sbdart_tpu_torch/kernels/eig_n2.py); this module carries only the
-trace-time tables of sbdart_tpu/solver/eig.py:41-56.
+The eigensolves themselves are fused into the front-end kernels
+(sbdart_tpu_torch/kernels/eig_n2.py, eig_n2_scatter.py, eig_beam.py);
+this module carries only the trace-time tables of
+sbdart_tpu/solver/eig.py:41-56.
 """
 
 from __future__ import annotations

@@ -105,7 +105,12 @@ def test_profile_and_deck_equal_reference(cfg_kw):
 
 
 def test_port_imports_without_jax():
-    code = ("import sys, sbdart_tpu_torch.cli, sbdart_tpu_torch.pipeline; "
+    mods = ("cli", "pipeline", "solver.fluxlane", "solver.planck",
+            "solver.sources", "ops.lane", "kernels.eig_n2_scatter",
+            "kernels.eig_beam", "kernels.blocktri_rt", "kernels._build")
+    code = ("import sys, importlib\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module('sbdart_tpu_torch.' + m)\n"
             "assert 'jax' not in sys.modules, 'jax imported'")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

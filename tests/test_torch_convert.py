@@ -64,6 +64,37 @@ def test_reference_deck_and_tables_carry_to_torch():
     assert inp["albedo"].shape == (2,)
 
 
+def test_thermal_and_16_stream_inputs_carry_to_torch():
+    """What the thermal and nstr 8/16 paths carry across: the 17-moment
+    deck of a cloudy column (BASELINE config 3), the 12- and 16-stream
+    angular tables, the temperature profile and the per-sample band edges
+    all reach torch with the reference's values."""
+    from sbdart_tpu.pipeline import _band_edges_wavenumber
+    from sbdart_tpu_torch.pipeline import band_edges_wavenumber
+
+    cfg = RefConfig(idatm=2, wlinf=0.5, wlsup=12.0, wlinc=0.5, nstr=16,
+                    zcloud=[2.0, 0, 0, 0, 0], tcloud=[10.0, 0, 0, 0, 0],
+                    nre=[10.0, 8, 8, 8, 8]).validate()
+    wl = ref_spectral_grid(cfg)
+    prof = ref_build_profile(cfg)
+    deck = ref_build_optical_deck(prof, cfg, wl, 17, None, None)
+    assert deck.pmom.shape[-1] == 17
+    for name, r, g in zip(deck._fields, deck,
+                          deck_to_torch(deck, "cpu", torch.float64)):
+        np.testing.assert_array_equal(g.numpy(), r, err_msg=name)
+    for nstr in (12, 16):
+        tab = ref_angular_tables(nstr, 1)
+        for r, g in zip(tab, tables_to_torch(tab, "cpu", torch.float64)):
+            np.testing.assert_array_equal(g.numpy(), r)
+    t = rte_inputs_to_torch("cpu", torch.float64, temper=prof.t)["temper"]
+    np.testing.assert_array_equal(t.numpy(), prof.t)
+    for r, g in zip(_band_edges_wavenumber(wl), band_edges_wavenumber(wl)):
+        np.testing.assert_array_equal(g, r)
+    for r, g in zip(_band_edges_wavenumber(wl[:1]),
+                    band_edges_wavenumber(wl[:1])):
+        np.testing.assert_array_equal(g, r)
+
+
 def test_cli_module_runs_without_card(tmp_path):
     """`python -m sbdart_tpu_torch.cli INPUT` prints the iout=10 line on a
     machine without a CUDA device (float64 on the CPU)."""

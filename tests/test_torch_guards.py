@@ -1,6 +1,7 @@
-"""What this slice of the port does not run yet raises NotImplementedError
-naming the ROADMAP slice that brings it, instead of computing something
-else."""
+"""What the port does not run yet raises NotImplementedError naming the
+ROADMAP slice that brings it, instead of computing something else:
+radiances and BRDF surfaces (the radiance slice, thermal or not), and
+stream counts whose N = nstr/2 is odd or above 8 (the generic path)."""
 
 import numpy as np
 import pytest
@@ -16,12 +17,16 @@ SSALB = np.full((2, 4), 0.5)
 PMOM = 0.5 ** np.arange(5) * np.ones((2, 4, 5))
 
 
+THERMAL = dict(planck=True, temper=np.full((2, 5), 280.0), wvnlo=800.0,
+               wvnhi=900.0)
+RADIANCE = dict(onlyfl=False, umu=np.array([0.5]), phi=np.array([0.0]))
+
+
 @pytest.mark.parametrize("kw,slice_name", [
-    (dict(planck=True, temper=np.full((2, 5), 280.0), wvnlo=800.0,
-          wvnhi=900.0), "thermal"),
-    (dict(nstr=8), "nstr 8/16"),
-    (dict(onlyfl=False, umu=np.array([0.5]), phi=np.array([0.0])),
-     "radiance"),
+    (dict(nstr=6), "Queue A item 7"),
+    (dict(nstr=32), "Queue A item 7"),
+    (RADIANCE, "radiance"),
+    (dict(THERMAL, **RADIANCE), "radiance slice"),
     (dict(brdf=object()), "BRDF"),
 ])
 def test_solve_rte_refuses_other_slices(kw, slice_name):
@@ -31,14 +36,11 @@ def test_solve_rte_refuses_other_slices(kw, slice_name):
 
 
 def test_pipeline_refuses_thermal_samples():
-    """Beyond 2 um the reference turns the Planck source on for the whole
-    run (pipeline.py:245-268); the port must not drop it silently."""
-    cfg = Config(idatm=2, wlinf=1.9, wlsup=2.1, wlinc=0.05, nstr=4).validate()
-    with pytest.raises(NotImplementedError, match="thermal"):
-        run_pipeline(cfg, device="cpu")
-    cfg = Config(idatm=2, wlinf=0.5, wlsup=0.6, wlinc=0.05, nstr=4,
-                 nothrm=0).validate()
-    with pytest.raises(NotImplementedError, match="thermal"):
+    """Thermal samples run with fluxes; with radiances requested (iout=20)
+    the run needs the radiance slice, thermal or not."""
+    cfg = Config(idatm=2, wlinf=1.9, wlsup=2.1, wlinc=0.05, nstr=4, iout=20,
+                 nzen=1, uzen=[0.0, 0, 0, 0, 0]).validate()
+    with pytest.raises(NotImplementedError, match="radiance slice"):
         run_pipeline(cfg, device="cpu")
 
 
@@ -47,9 +49,13 @@ def test_pipeline_refuses_radiance_and_nstr16():
                  nzen=1, uzen=[0.0, 0, 0, 0, 0]).validate()
     with pytest.raises(NotImplementedError, match="radiance"):
         run_pipeline(cfg, device="cpu")
+    cfg = Config(idatm=2, wlinf=0.5, wlsup=0.6, wlinc=0.05, nstr=16,
+                 iout=20, nzen=1, uzen=[0.0, 0, 0, 0, 0]).validate()
+    with pytest.raises(NotImplementedError, match="radiance"):
+        run_pipeline(cfg, device="cpu")
     cfg = Config(idatm=2, wlinf=0.5, wlsup=0.6, wlinc=0.05,
-                 nstr=16).validate()
-    with pytest.raises(NotImplementedError, match="nstr 8/16"):
+                 nstr=32).validate()
+    with pytest.raises(NotImplementedError, match="Queue A item 7"):
         run_pipeline(cfg, device="cpu")
 
 

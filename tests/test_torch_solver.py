@@ -1,5 +1,5 @@
-"""The port's solve_rte (nstr=4 solar flux slice) against the JAX
-package's, on the same NumPy inputs.
+"""The port's solve_rte (flux-only, nstr 4/8/16, solar and thermal)
+against the JAX package's, on the same NumPy inputs.
 
   * float64: against the reference's generic route (eig_method="xla",
     bvp_method="scan"), a different algorithm for the same DISORT
@@ -15,6 +15,15 @@ package's, on the same NumPy inputs.
     (measured: float64 cross-route 4.9e-8, float32 port vs reference
     7.5e-4).  Float64 is held at 1e-6, and in float32 each route is
     held to the reference's own distance from the float64 truth.
+  * nstr 4 with the thermal source, 8 and 16 solar, 16 thermal, on the
+    reference's _fused_flux_problem (tests/test_pallas_kernels.py:325-346,
+    6 layers x 16 columns): float32 against its fused_interpret route at
+    its bar 5e-4 (measured 2e-6 to 6.7e-5), float64 against its xla route
+    at 1e-10 (measured 3e-15 to 5e-13; the float64 route runs the plain
+    versions with 6 Jacobi sweeps);
+  * the optically thin thermal band of tests/test_f32_path.py:147-183:
+    float32 within 1e-2 of the float64 route and of the reference's
+    float64 (the slope floor at work).
 """
 
 import jax.numpy as jnp
@@ -126,3 +135,87 @@ def test_solve_rte_routes_agree_and_unaligned_batch_stays_finite():
         assert torch.isfinite(a).all() and torch.equal(a, p)
     with pytest.raises(ValueError, match="eig_method"):
         solve_rte(*args, nstr=4, **kw, eig_method="fused")
+
+
+def fused_flux_problem(nstr, nlyr, b, planck, seed=0):
+    """tests/test_pallas_kernels.py:_fused_flux_problem as NumPy arrays."""
+    rng = np.random.default_rng(seed)
+    dtau = rng.uniform(0.001, 0.6, (b, nlyr))
+    ssalb = rng.uniform(0.05, 0.999, (b, nlyr))
+    g = rng.uniform(0.0, 0.85, (b, nlyr))
+    pmom = g[..., None] ** np.arange(nstr + 1)
+    kw = dict(fbeam=np.where(rng.uniform(size=b) < 0.8, 1.0, 0.0),
+              umu0=rng.uniform(0.2, 1.0, (b,)),
+              albedo=rng.uniform(0.0, 0.8, (b,)))
+    if planck:
+        kw.update(temper=np.linspace(250, 290, nlyr + 1)[None].repeat(b, 0),
+                  fisot=0.3)
+    return (dtau, ssalb, pmom), kw
+
+
+PLANCK_KW = dict(planck=True, wvnlo=800.0, wvnhi=900.0, btemp=290.0)
+CASES = [(4, True), (8, False), (16, False), (16, True)]
+_REF = {}
+
+
+def _reference(nstr, planck):
+    """The reference's float32 fused_interpret and float64 xla solves."""
+    if (nstr, planck) not in _REF:
+        args, kw = fused_flux_problem(nstr, 6, 16, planck)
+        extra = PLANCK_KW if planck else {}
+        r32 = ref_solve_rte(
+            *(jnp.asarray(a, jnp.float32) for a in args), nstr=nstr,
+            **{k: jnp.asarray(v, jnp.float32) for k, v in kw.items()},
+            **extra, onlyfl=True, dtype=jnp.float32,
+            eig_method="fused_interpret")
+        r64 = ref_solve_rte(
+            *(jnp.asarray(a) for a in args), nstr=nstr,
+            **{k: jnp.asarray(v) for k, v in kw.items()}, **extra,
+            onlyfl=True, dtype=jnp.float64, eig_method="xla",
+            bvp_method="scan")
+        _REF[nstr, planck] = (args, kw, extra, r32, r64)
+    return _REF[nstr, planck]
+
+
+@pytest.mark.parametrize("nstr,planck", CASES)
+def test_solve_rte_general_f32_matches_reference_lane_path(nstr, planck):
+    args, kw, extra, r32, _ = _reference(nstr, planck)
+    got = solve_rte(*args, nstr=nstr, **kw, **extra, dtype=torch.float32)
+    for name in ("rfldn", "flup", "uavg", "dfdt"):
+        assert getattr(got, name).dtype == torch.float32
+        err = _rel_err(getattr(got, name), getattr(r32, name))
+        assert err < 5e-4, (name, err)
+
+
+@pytest.mark.parametrize("nstr,planck", CASES)
+def test_solve_rte_general_f64_matches_reference_generic_route(nstr, planck):
+    args, kw, extra, _, r64 = _reference(nstr, planck)
+    got = solve_rte(*args, nstr=nstr, **kw, **extra, dtype=torch.float64)
+    for name in OUTPUTS:
+        err = _rel_err(getattr(got, name), getattr(r64, name))
+        assert err < 1e-10, (name, err)
+
+
+def test_f32_thermal_thin_band_tracks_f64():
+    """Per-layer dtau 1e-7..1e-2 in a cold column, 20 cm^-1 band: without
+    the float32 slope floor two correct float32 paths differed 3x here."""
+    nlyr = 16
+    rng = np.random.default_rng(12)
+    dtau = 10.0 ** rng.uniform(-7.0, -2.0, nlyr)
+    ssalb = np.full(nlyr, 1e-4)
+    pmom = np.zeros((nlyr, 5))
+    pmom[:, 0] = 1.0
+    kw = dict(nstr=4, fbeam=0.0, umu0=1.0, albedo=0.05, planck=True,
+              temper=np.linspace(211.0, 257.0, nlyr + 1), wvnlo=1660.0,
+              wvnhi=1680.0, btemp=257.1, temis=0.0, onlyfl=True)
+    ref64 = ref_solve_rte(*(jnp.asarray(a) for a in (dtau, ssalb, pmom)),
+                          dtype=jnp.float64, eig_method="xla",
+                          bvp_method="scan", **kw)
+    got32 = solve_rte(dtau, ssalb, pmom, dtype=torch.float32, **kw)
+    got64 = solve_rte(dtau, ssalb, pmom, dtype=torch.float64, **kw)
+    for name in ("rfldn", "flup", "uavg"):
+        a = getattr(got32, name).double().numpy()
+        for truth in (getattr(got64, name).numpy(),
+                      np.asarray(getattr(ref64, name))):
+            err = np.abs(a - truth).max() / max(np.abs(truth).max(), 1e-3)
+            assert err < 1e-2, (name, err)
