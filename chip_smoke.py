@@ -10,29 +10,34 @@ Phases, one JSON line each; the first failure exits non-zero:
   1. device   the card's name and power limit (nvidia-smi);
   2. build    nvcc builds the CUDA kernels from kernels/csrc/ (timed);
   3. kernel   each kernel against its plain torch version on the card at
-              the main path's shapes, bar rtol 1e-4 / atol 1e-5, with both
-              device times (torch.profiler) and both wall times (CUDA
-              events): B1/B2 at 33 layers x 49152 columns, B3 (nstr=4
-              thermal front end) at 33 x 49152, B4/B5 (nstr 16 and 8) at
-              65 and 33 layers x 6144 columns, each also at an unaligned
-              130 columns;
+              the main path's shapes, bar rtol 1e-4 / atol 1e-5 on every
+              element of every output, with both device times
+              (torch.profiler) and both wall times (CUDA events): B1/B2 at
+              33 layers x 49152 columns, B3 (nstr=4 thermal front end) at
+              33 x 49152, B4 with the BVP kernels B5 (full-W history) and
+              B6 (rank-N history, forward and backward) at nstr 16 x 65
+              layers and nstr 8 x 33 layers x 6144 columns (the path runs
+              B6 at the first and B5 at the second; both are timed at
+              both), each also at an unaligned 130 columns;
   4. solve    solve_rte in float32 through the kernels against the plain
               path on the card (max-abs error / max-abs <= 5e-4), with
-              band-columns/s for both and the kernel path's device idle
-              share: nstr=4 solar at 16384 band-columns x 3 k-terms x 33
-              layers, nstr=16 solar at 2048 x 3 x 65, nstr=4 thermal at
-              16384 x 3 x 33;
+              band-columns/s for both, and the kernel path's device time
+              split into each kernel and the glue, its device operations
+              per solve and its idle share: nstr=4 solar at 16384
+              band-columns x 3 k-terms x 33 layers, nstr=16 solar at
+              2048 x 3 x 65 (B4, B6), nstr=4 thermal at 16384 x 3 x 33;
   5. cli      the sbdart CLI on BASELINE config 1 (Lambertian closure
               botup/botdn = albcon to 1e-5), config 2 (tropical LW, 4-40 um,
               nstr=4: OLR finite, positive, and within 1e-2 of the float64
               plain route on the card) and config 3 (water cloud, nstr=16,
-              SW+LW: iout=10 line finite; closure on its solar-only part).
+              SW+LW, 32 layers, so B4 and B5: iout=10 line finite; closure on
+              its solar-only part).
 
-Kernel launch counters are zeroed just before phase 4 and read after
-phase 5: each kernel must have been launched by the phases whose path
-runs it.  Then come the kernels summary, the nvidia-smi line, and as the
-last line {"ok": true, "device": {...}}.  Without a CUDA device the script
-fails.
+Kernel launch counters are zeroed just before each run of phases 4 and
+5 and read just after it: each kernel must have been launched by the runs
+whose path holds it.  Then come the kernels summary, the nvidia-smi line,
+and as the last line {"ok": true, "device": {...}}.  Without a CUDA
+device the script fails.
 """
 
 from __future__ import annotations
@@ -57,7 +62,6 @@ NK = 3                 # k-terms per band-column
 B = NBC * NK           # columns the kernels see
 RTOL, ATOL = 1e-4, 1e-5        # kernel vs plain (tests/test_pallas_kernels.py:142)
 E2E_BAR = 5e-4                 # solve vs plain path (tests/test_pallas_kernels.py:364-368)
-MODE_MISS_SHARE = 1e-4         # per-mode planes: largest share of misses reported, not failed
 INPUT_C1 = """ &INPUT
    idatm=2, wlinf=0.25, wlsup=2.0, wlinc=0.005,
    sza=30, albcon=0.2, nstr=4, iout=10
@@ -109,10 +113,9 @@ def timed_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int, match: str | None = None) -> float:
-    """Device milliseconds per call of fn(): the summed durations of the
-    CUDA work it launches (only kernels whose name holds `match`, if
-    given), from torch.profiler.  Host dispatch gaps are not counted."""
+def device_events(fn, reps: int):
+    """The device operations (kernels, copies, fills) of `reps` calls of
+    fn(), from torch.profiler, as (name, microseconds) pairs."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -123,12 +126,37 @@ def device_ms(fn, reps: int, match: str | None = None) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    ev = [e for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and (match is None or match in e.name)]
-    if not ev:
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_ms(fn, reps: int, match: str | None = None) -> float:
+    """Device milliseconds per call of fn(): the summed durations of the
+    CUDA work it launches (only kernels whose name holds `match`, if
+    given).  Host dispatch gaps are not counted."""
+    us = [t for name, t in device_events(fn, reps)
+          if match is None or match in name]
+    if not us:
         raise SmokeFailure(f"profiler saw no device work ({match})")
-    return sum(e.time_range.elapsed_us() for e in ev) / reps / 1e3
+    return sum(us) / reps / 1e3
+
+
+def device_breakdown(fn, reps: int) -> dict:
+    """Per call of fn(): device ms in all, in each of the port's kernels
+    (by its __global__ name) and in the rest (the torch glue), and the
+    number of device operations."""
+    ev = device_events(fn, reps)
+    if not ev:
+        raise SmokeFailure("profiler saw no device work")
+    busy = sum(t for _, t in ev) / reps / 1e3
+    per = {}
+    for k, spec in KERNELS.items():
+        us = [t for name, t in ev if spec[4] in name]
+        if us:
+            per[k] = sum(us) / reps / 1e3
+    return {"device_busy_ms": busy, "kernel_device_ms": per,
+            "glue_device_ms": busy - sum(per.values()),
+            "device_ops_per_solve": len(ev) / reps}
 
 
 def flux_problem(nbc, nk, nlyr, device, seed=0, nmom=5, planck=False):
@@ -246,17 +274,15 @@ def compare(name, got, want):
 
 def check_kernel(kname, names, kern, plain, b):
     """One kernel against its plain version on the same operands: a row
-    of per-output comparisons.  dtau* and xs are mode-free: a miss there
-    fails.  Per-mode planes may miss at near-degenerate lanes only; they
-    are reported, and the solve phase decides."""
+    of per-output comparisons.  The kernel follows its plain version's
+    operation order on the same inputs, eigenmode order included, so any
+    element outside the bar fails."""
     got, want = kern(), plain()
     if not isinstance(got, (tuple, list)):
         got, want = (got,), (want,)
     outs = [compare(n, g, w) for n, g, w in zip(names, got, want)]
     for o in outs:
-        share = o["misses"] / o["elements"]
-        if o["misses"] and (o["output"] in ("dtau_scaled", "xs")
-                            or share > MODE_MISS_SHARE):
+        if o["misses"]:
             raise SmokeFailure(f"{kname}/{o['output']} at B={b}: "
                                f"{o['misses']} misses of the bar")
     return {"kernel": kname, "outputs": outs}
@@ -266,7 +292,7 @@ def time_kernel(row, kern, plain, reps, plain_reps):
     """ms / plain_ms: device time (profiler, the kernel's own launches);
     the wall figures add the host's dispatch gaps (CUDA events)."""
     row.update(
-        ms=device_ms(kern, reps, match=row["kernel"]),
+        ms=device_ms(kern, reps, match=KERNELS[row["kernel"]][4]),
         plain_ms=device_ms(plain, plain_reps),
         wall_ms=timed_ms(kern, reps),
         plain_wall_ms=timed_ms(plain, plain_reps, warmup=1),
@@ -324,20 +350,28 @@ def phase_kernels(device, reps):
 
 
 def phase_kernels_general(device, reps):
-    """B3 (nstr=4 thermal front end), B4 and B5 (nstr 16 and 8) against
-    their plain versions at the main path's shapes and at 130 columns."""
+    """B3 (nstr=4 thermal front end), B4, B5 and B6 (nstr 16 and 8)
+    against their plain versions at the main path's shapes and at 130
+    columns.  B6's backward kernel is held against its plain version on
+    the plain forward's history."""
     from sbdart_tpu_torch.kernels.blocktri_rt import (
         block_thomas_rt, block_thomas_rt_plain)
+    from sbdart_tpu_torch.kernels.blocktri_rt_streamed import (
+        block_thomas_rt_bwd, block_thomas_rt_bwd_plain, block_thomas_rt_fwd,
+        block_thomas_rt_fwd_plain, reference_streams)
     from sbdart_tpu_torch.kernels.eig_beam import (
         eig_beam_chain, eig_beam_chain_plain)
     from sbdart_tpu_torch.kernels.eig_n2_scatter import (
         eig_beam_scatter_n2, eig_beam_scatter_n2_plain)
 
     summary = {}
-    # (nstr, layers, columns, whether this shape's times go to the summary)
-    cases = [(4, NLYR, NBC, True), (16, NLYR16, NBC16, True),
-             (8, NLYR, NBC16, False)]
-    for nstr, nlyr, nbc, main in cases:
+    # (nstr, layers, columns)
+    cases = [(4, NLYR, NBC), (16, NLYR16, NBC16), (8, NLYR, NBC16)]
+    # the nstr whose shape gives each kernel's times in the summary: one
+    # where the main path runs it
+    summary_nstr = {"eig_n2_scatter": 4, "eig_beam": 16, "blocktri_rt": 8,
+                    "blocktri_rt_fwd": 16, "blocktri_rt_bwd": 16}
+    for nstr, nlyr, nbc in cases:
         for cols, nk in ((nbc, NK), (130, 1)):
             prob = flux_problem(cols, nk, nlyr, device, nmom=nstr + 1,
                                 planck=nstr == 4)
@@ -348,6 +382,7 @@ def phase_kernels_general(device, reps):
                     EIG_NAMES, lambda: eig_beam_scatter_n2(*front),
                     lambda: eig_beam_scatter_n2_plain(*front), reps)}
             else:
+                hist = block_thomas_rt_fwd_plain(*bvp)
                 calls = {
                     "eig_beam": (
                         EIG_NAMES, lambda: eig_beam_chain(*front),
@@ -356,13 +391,25 @@ def phase_kernels_general(device, reps):
                     "blocktri_rt": (
                         ("xs",), lambda: block_thomas_rt(*bvp),
                         lambda: block_thomas_rt_plain(*bvp), 2),
+                    "blocktri_rt_fwd": (
+                        ("cs", "ys"), lambda: block_thomas_rt_fwd(*bvp),
+                        lambda: block_thomas_rt_fwd_plain(*bvp), 2),
+                    "blocktri_rt_bwd": (
+                        ("xs",), lambda: block_thomas_rt_bwd(*bvp[:3], *hist),
+                        lambda: block_thomas_rt_bwd_plain(*bvp[:3], *hist),
+                        3),
                 }
+            streams = nstr > 4 and reference_streams(nlyr, nstr // 2)
             rows = []
             for kname, (names, kern, plain, plain_reps) in calls.items():
                 row = check_kernel(kname, names, kern, plain, b)
                 if cols == nbc:
                     time_kernel(row, kern, plain, reps, plain_reps)
-                fold(summary, row, main=main and cols == nbc)
+                row["on_main_path"] = (
+                    kname in ("eig_beam", "eig_n2_scatter")
+                    or (kname != "blocktri_rt") == streams)
+                fold(summary, row,
+                     main=summary_nstr[kname] == nstr and cols == nbc)
                 rows.append(row)
             emit({"phase": "kernel", "nstr": nstr, "layers": nlyr,
                   "columns": b, "bar": {"rtol": RTOL, "atol": ATOL},
@@ -397,7 +444,8 @@ def phase_solve(device, reps, *, nstr=4, nbc=NBC, nlyr=NLYR, planck=False):
     worst = max(errs[n] for n in ("rfldn", "flup", "uavg", "dfdt"))
     k_ms = timed_ms(lambda: run("auto"), reps)
     p_ms = timed_ms(lambda: run("plain"), max(3, reps // 2), warmup=1)
-    busy_ms = device_ms(lambda: run("auto"), reps)
+    dev = device_breakdown(lambda: run("auto"), reps)
+    busy_ms = dev["device_busy_ms"]
     rec = {"phase": "solve", "nstr": nstr, "planck": planck,
            "band_columns": nbc, "k_terms": NK,
            "layers": nlyr, "dtype": "float32", "rel_err": errs,
@@ -405,7 +453,10 @@ def phase_solve(device, reps, *, nstr=4, nbc=NBC, nlyr=NLYR, planck=False):
            "kernel_path_bc_per_s": nbc / (k_ms / 1e3),
            "plain_path_bc_per_s": nbc / (p_ms / 1e3),
            "kernel_path_device_busy_ms": busy_ms,
-           "kernel_path_device_idle_share": max(0.0, 1.0 - busy_ms / k_ms)}
+           "kernel_path_device_idle_share": max(0.0, 1.0 - busy_ms / k_ms),
+           "kernel_path_kernel_device_ms": dev["kernel_device_ms"],
+           "kernel_path_glue_device_ms": dev["glue_device_ms"],
+           "kernel_path_device_ops": dev["device_ops_per_solve"]}
     emit(rec)
     if worst > E2E_BAR:
         raise SmokeFailure(f"solve nstr={nstr} planck={planck}: kernel vs "
@@ -539,18 +590,31 @@ def phase_cli_config3():
     return rec
 
 
-KERNELS = {   # name: (wrapper module, wrapper, source, the TPU kernel)
+KERNELS = {   # name: (wrapper module, wrapper, source, the TPU kernel,
+              #        the CUDA kernel's __global__ name)
     "eig_n2_deltam": ("eig_n2", "eig_beam_deltam_scatter_n2",
-                      "eig_n2_deltam.cu", "sbdart_tpu/pallas/eig.py:838"),
+                      "eig_n2_deltam.cu", "sbdart_tpu/pallas/eig.py:838",
+                      "eig_n2_deltam_kernel"),
     "blocktri_rt_n2": ("blocktri_n2", "block_thomas_rt_n2",
                        "blocktri_rt_n2.cu",
-                       "sbdart_tpu/pallas/blocktri.py:823"),
+                       "sbdart_tpu/pallas/blocktri.py:823",
+                       "blocktri_rt_n2_kernel"),
     "eig_n2_scatter": ("eig_n2_scatter", "eig_beam_scatter_n2",
-                       "eig_n2_scatter.cu", "sbdart_tpu/pallas/eig.py:780"),
+                       "eig_n2_scatter.cu", "sbdart_tpu/pallas/eig.py:780",
+                       "eig_n2_scatter_kernel"),
     "eig_beam": ("eig_beam", "eig_beam_chain", "eig_beam.cu",
-                 "sbdart_tpu/pallas/eig.py:281"),
+                 "sbdart_tpu/pallas/eig.py:281", "eig_beam_kernel"),
     "blocktri_rt": ("blocktri_rt", "block_thomas_rt", "blocktri_rt.cu",
-                    "sbdart_tpu/pallas/blocktri.py:269"),
+                    "sbdart_tpu/pallas/blocktri.py:269",
+                    "blocktri_rt_kernel"),
+    "blocktri_rt_fwd": ("blocktri_rt_streamed", "block_thomas_rt_fwd",
+                        "blocktri_rt_streamed.cu",
+                        "sbdart_tpu/pallas/blocktri.py:373",
+                        "blocktri_rt_fwd_kernel"),
+    "blocktri_rt_bwd": ("blocktri_rt_streamed", "block_thomas_rt_bwd",
+                        "blocktri_rt_streamed.cu",
+                        "sbdart_tpu/pallas/blocktri.py:457",
+                        "blocktri_rt_bwd_kernel"),
 }
 
 
@@ -590,29 +654,32 @@ def main() -> int:
 
     wrappers = {
         k: getattr(importlib.import_module(f"sbdart_tpu_torch.kernels.{m}"), f)
-        for k, (m, f, _, _) in KERNELS.items()
+        for k, (m, f, _, _, _) in KERNELS.items()
     }
-    for fn in wrappers.values():
-        fn.launches = 0
     owners = [   # each phase of the main path and the kernels it runs
         (lambda: phase_solve(device, reps=10),
          ("eig_n2_deltam", "blocktri_rt_n2")),
         (lambda: phase_solve(device, reps=10, nstr=16, nbc=NBC16,
-                             nlyr=NLYR16), ("eig_beam", "blocktri_rt")),
+                             nlyr=NLYR16),
+         ("eig_beam", "blocktri_rt_fwd", "blocktri_rt_bwd")),
         (lambda: phase_solve(device, reps=10, planck=True),
          ("eig_n2_scatter", "blocktri_rt_n2")),
         (phase_cli, ("eig_n2_deltam", "blocktri_rt_n2")),
         (phase_cli_config2, ("eig_n2_scatter", "blocktri_rt_n2")),
         (phase_cli_config3, ("eig_beam", "blocktri_rt")),
     ]
+    launches = dict.fromkeys(KERNELS, 0)
     for phase, owned in owners:
-        before = {k: fn.launches for k, fn in wrappers.items()}
+        for fn in wrappers.values():
+            fn.launches = 0
         rec = phase()
-        missed = [k for k in owned if wrappers[k].launches == before[k]]
+        counts = {k: fn.launches for k, fn in wrappers.items()}
+        missed = [k for k in owned if counts[k] == 0]
         if missed:
             raise SmokeFailure(f"{rec['phase']} {rec.get('input', '')} "
                                f"skipped its kernels {missed}")
-    launches = {k: fn.launches for k, fn in wrappers.items()}
+        for k, c in counts.items():
+            launches[k] += c
 
     emit({"kernels": [
         {"name": k, "route": "cuda",

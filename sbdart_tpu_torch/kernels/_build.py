@@ -27,7 +27,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("eig_n2_deltam.cu", "eig_n2_scatter.cu", "eig_beam.cu",
-           "blocktri_rt_n2.cu", "blocktri_rt.cu")
+           "blocktri_rt_n2.cu", "blocktri_rt.cu", "blocktri_rt_streamed.cu")
 HEADERS = ("eig_n2_chain.cuh", "solve_step.cuh")
 # IEEE sqrt/div/exp (no --use_fast_math) and no contracted multiply-adds:
 # the kernels round where their plain torch versions do.
@@ -113,12 +113,16 @@ def library() -> ctypes.CDLL:
     lib.sbdart_eig_n2_deltam.restype = _I
     lib.sbdart_eig_n2_scatter.argtypes = [_P] * 9 + [_I, _I, _P, _P]
     lib.sbdart_eig_n2_scatter.restype = _I
-    lib.sbdart_eig_beam.argtypes = [_P] * 10 + [_I, _I, _I, _I, _P, _P]
+    lib.sbdart_eig_beam.argtypes = [_P] * 10 + [_I, _I, _I, _P, _P]
     lib.sbdart_eig_beam.restype = _I
     lib.sbdart_blocktri_rt_n2.argtypes = [_P] * 8 + [_I, _I, _P]
     lib.sbdart_blocktri_rt_n2.restype = _I
     lib.sbdart_blocktri_rt.argtypes = [_P] * 8 + [_I, _I, _I, _P]
     lib.sbdart_blocktri_rt.restype = _I
+    lib.sbdart_blocktri_rt_fwd.argtypes = [_P] * 7 + [_I, _I, _I, _P]
+    lib.sbdart_blocktri_rt_fwd.restype = _I
+    lib.sbdart_blocktri_rt_bwd.argtypes = [_P] * 6 + [_I, _I, _I, _P]
+    lib.sbdart_blocktri_rt_bwd.restype = _I
     lib.sbdart_cuda_error_string.argtypes = [_I]
     lib.sbdart_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,0 +1,176 @@
+"""B6: fused SETMTX + SOLVE0 for general n with the rank-N factor history
+(nstr 8/12/16, N = 4, 6, 8), as a forward kernel and a backward kernel.
+
+Port of sbdart_tpu/pallas/blocktri.py:_rt_fwd_chunk_kernel and
+_rt_bwd_chunk_kernel, which its block_thomas_rt runs instead of _rt_kernel
+(B5, kernels/blocktri_rt.py) when one 128-lane tile of the whole column
+would not fit the TPU's VMEM: at N = 8 from 42 layers on, at N = 6 from 71,
+at N = 4 from 147 (`reference_streams`).  The blocks are those of B5; the
+factor kept per layer is C_l = dt_l^-1[:, N:] (2N x N) instead of W_l
+(2N x 2N), since W_l = C_l ub_l with ub_l = -[gp_{l+1}, gm_{l+1} e_{l+1}]
+the bottom rows of the upper block (blocktri.py:235-249):
+
+    forward   dt_l = diag_l - [(lt_l C_{l-1}) ub_{l-1}; 0]
+              dt_l [C_l | y_l] = [I_bottom | r_l - [lt_l y_{l-1}; 0]]
+    backward  x_{L-1} = y_{L-1};  x_l = y_l - C_l (ub_l x_{l+1})
+
+The two round differently from B5, so the flux path picks the one the
+reference picks at each shape.  The TPU version chunks the layers to fit
+VMEM and pads them with identity layers; neither changes a real layer's
+value, and neither is kept.
+
+`block_thomas_rt_fwd` and `block_thomas_rt_bwd` launch the CUDA kernels of
+csrc/blocktri_rt_streamed.cu on CUDA tensors and run their plain versions
+on CPU tensors.  Inputs gp/gm [L, N, N, B], ee [L, N, B], refl [N, N, B],
+rhs [L, 2N, B]; the history is cs [L, 2N, N, B] and ys [L, 2N, B]; the
+solution xs [L, 2N, B].
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sbdart_tpu_torch.kernels.blocktri_rt import solve_step
+from sbdart_tpu_torch.ops.lane import lmatmul as _mm
+from sbdart_tpu_torch.ops.lane import lmatvec as _mv
+
+# the reference's VMEM budget (pallas/blocktri.py:_tile_for_vmem) and its
+# smallest lane tile
+_VMEM_BUDGET = 12 * 1024 * 1024
+_MIN_TILE = 128
+
+
+def reference_streams(nlyr: int, n: int) -> bool:
+    """Whether the reference's block_thomas_rt takes the streamed kernels
+    at this shape (pallas/blocktri.py:693-703): the whole-column working
+    set of one 128-lane tile exceeds the VMEM budget."""
+    m = 2 * n
+    floats = nlyr * (4 * n * n + 2 * n + 2 * 2 * m + m * m) + 2 * n * n
+    return 4 * floats * _MIN_TILE > _VMEM_BUDGET
+
+
+def block_thomas_rt_fwd_plain(gp, gm, ee, refl, rhs):
+    """Plain torch version of the forward kernel, any device and float
+    dtype: a Python loop over layers on [2N, *, B] blocks, sums over a
+    block index in order.  Returns (cs, ys)."""
+    nlyr, n, _, b = gp.shape
+    m = 2 * n
+    new = dict(dtype=gp.dtype, device=gp.device)
+    eye_bottom = torch.zeros((m, n, b), **new)
+    eye_bottom[n:] = torch.eye(n, **new)[:, :, None]
+    c_prev = torch.zeros((m, n, b), **new)
+    y_prev = torch.zeros((m, b), **new)
+    cs, ys = [], []
+    for l in range(nlyr):
+        gpl, gml, eel = gp[l], gm[l], ee[l]
+        gpe, gme = gpl * eel[None], gml * eel[None]
+        d_top = torch.cat([gml, gpe], dim=1)           # [N, 2N, B]
+        last = 1.0 if l == nlyr - 1 else 0.0
+        d_bot = torch.cat([gpe, gml], dim=1) - last * torch.cat(
+            [_mm(refl, gme), _mm(refl, gpl)], dim=1)
+
+        lm1 = max(l - 1, 0)
+        neg_low = -(1.0 if l > 0 else 0.0)
+        lt = neg_low * torch.cat([gm[lm1] * ee[lm1][None], gp[lm1]], dim=1)
+        ub_prev = -torch.cat([gpl, gme], dim=1)        # [N, 2N, B]
+        dt = torch.cat([d_top - _mm(_mm(lt, c_prev), ub_prev), d_bot])
+        r_l = rhs[l]
+        rt = torch.cat([r_l[:n] - _mv(lt, y_prev), r_l[n:]])
+
+        sol = solve_step(dt, torch.cat([eye_bottom, rt[:, None, :]], dim=1))
+        c_prev, y_prev = sol[:, :n], sol[:, n]
+        cs.append(c_prev)
+        ys.append(y_prev)
+    return torch.stack(cs), torch.stack(ys)
+
+
+def block_thomas_rt_bwd_plain(gp, gm, ee, cs, ys):
+    """Plain torch version of the backward kernel: xs from the history."""
+    nlyr = gp.shape[0]
+    xs = [None] * nlyr
+    xs[-1] = ys[-1]
+    for l in range(nlyr - 2, -1, -1):
+        ub = -torch.cat([gp[l + 1], gm[l + 1] * ee[l + 1][None]], dim=1)
+        xs[l] = ys[l] - _mv(cs[l], _mv(ub, xs[l + 1]))
+    return torch.stack(xs)
+
+
+def block_thomas_rt_streamed_plain(gp, gm, ee, refl, rhs):
+    """The whole B6 solve in plain torch: xs [L, 2N, B]."""
+    return block_thomas_rt_bwd_plain(
+        gp, gm, ee, *block_thomas_rt_fwd_plain(gp, gm, ee, refl, rhs))
+
+
+def _check_shapes(name, n, want, tensors):
+    if n not in (4, 6, 8):
+        raise ValueError(f"{name}: the kernel takes N = 4, 6 or 8, got {n}")
+    for key, t in zip(want, tensors):
+        if tuple(t.shape) != want[key]:
+            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
+                             f"expected {want[key]}")
+
+
+def block_thomas_rt_fwd(gp, gm, ee, refl, rhs):
+    """B6 forward: the CUDA kernel on CUDA tensors (float32 only), the
+    plain torch version on CPU tensors.  Returns (cs, ys)."""
+    if gp.device.type == "cpu":
+        return block_thomas_rt_fwd_plain(gp, gm, ee, refl, rhs)
+    from sbdart_tpu_torch.kernels import _build
+
+    nlyr, n, _, b = gp.shape
+    m = 2 * n
+    _check_shapes("block_thomas_rt_fwd", n, {
+        "gp": (nlyr, n, n, b), "gm": (nlyr, n, n, b), "ee": (nlyr, n, b),
+        "refl": (n, n, b), "rhs": (nlyr, m, b)}, (gp, gm, ee, refl, rhs))
+    ins = [t.contiguous() for t in (gp, gm, ee, refl, rhs)]
+    _build.require_cuda_f32("block_thomas_rt_fwd", *ins)
+    new = dict(device=gp.device, dtype=torch.float32)
+    cs = torch.empty((nlyr, m, n, b), **new)
+    ys = torch.empty((nlyr, m, b), **new)
+    lib = _build.library()
+    with torch.cuda.device(gp.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.sbdart_blocktri_rt_fwd(
+            *(t.data_ptr() for t in ins), cs.data_ptr(), ys.data_ptr(),
+            nlyr, n, b, stream,
+        )
+    block_thomas_rt_fwd.launches += 1
+    _build.check(code, "block_thomas_rt_fwd")
+    return cs, ys
+
+
+def block_thomas_rt_bwd(gp, gm, ee, cs, ys):
+    """B6 backward: the CUDA kernel on CUDA tensors (float32 only), the
+    plain torch version on CPU tensors.  Returns xs."""
+    if gp.device.type == "cpu":
+        return block_thomas_rt_bwd_plain(gp, gm, ee, cs, ys)
+    from sbdart_tpu_torch.kernels import _build
+
+    nlyr, n, _, b = gp.shape
+    m = 2 * n
+    _check_shapes("block_thomas_rt_bwd", n, {
+        "gp": (nlyr, n, n, b), "gm": (nlyr, n, n, b), "ee": (nlyr, n, b),
+        "cs": (nlyr, m, n, b), "ys": (nlyr, m, b)}, (gp, gm, ee, cs, ys))
+    ins = [t.contiguous() for t in (gp, gm, ee, cs, ys)]
+    _build.require_cuda_f32("block_thomas_rt_bwd", *ins)
+    xs = torch.empty((nlyr, m, b), device=gp.device, dtype=torch.float32)
+    lib = _build.library()
+    with torch.cuda.device(gp.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.sbdart_blocktri_rt_bwd(
+            *(t.data_ptr() for t in ins), xs.data_ptr(), nlyr, n, b, stream,
+        )
+    block_thomas_rt_bwd.launches += 1
+    _build.check(code, "block_thomas_rt_bwd")
+    return xs
+
+
+def block_thomas_rt_streamed(gp, gm, ee, refl, rhs):
+    """The whole B6 solve: forward then backward, each through its
+    wrapper.  Returns xs [L, 2N, B]."""
+    return block_thomas_rt_bwd(
+        gp, gm, ee, *block_thomas_rt_fwd(gp, gm, ee, refl, rhs))
+
+
+block_thomas_rt_fwd.launches = 0
+block_thomas_rt_bwd.launches = 0

@@ -27,8 +27,9 @@
 // holds.  The W and y history goes to a wrapper-allocated scratch laid out
 // column-minor ([L, m^2, B] and [L, m, B]) so that a warp's accesses are
 // 32 consecutive floats, as B2's; at nstr=16 x 65 layers x 6144 columns
-// that is 65 x 256 x 6144 floats (409 MB) of W.  The TPU's VMEM cliff that
-// switched its wrapper to the streamed kernel (B6) does not exist here.
+// that is 65 x 256 x 6144 floats (409 MB) of W.  The shapes where the TPU's
+// wrapper switched to its streamed kernels (from 42 layers at N = 8) run
+// B6 (blocktri_rt_streamed.cu) instead, as the reference does.
 //
 // Numerics: every sum over a block index runs in order, as in the plain
 // torch version (sbdart_tpu_torch/kernels/blocktri_rt.py), term by term;

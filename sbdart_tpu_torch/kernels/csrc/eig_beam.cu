@@ -45,6 +45,9 @@
 namespace {
 
 constexpr int kMaxN = 8;
+// Jacobi sweeps: the reference's DEFAULT_SWEEPS, SWEEPS_F32 in eig_beam.py
+// (float64 never reaches the kernel; its route runs the plain version)
+constexpr int kSweeps = 3;
 
 struct EigBeamConsts {
   float inv_mu[kMaxN];     // 1 / mu_i (float32 of the float64 reciprocal)
@@ -73,7 +76,7 @@ __global__ void eig_beam_kernel(
     float* __restrict__ gm_out,        // [L, N, N, B]
     float* __restrict__ zp_out,        // [L, N, B]
     float* __restrict__ zm_out,        // [L, N, B]
-    int ncol, int sweeps, EigBeamConsts k) {
+    int ncol, EigBeamConsts k) {
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= ncol) return;
   const long long l = blockIdx.y;
@@ -181,7 +184,8 @@ __global__ void eig_beam_kernel(
   }
 
   // ---- 4. parallel-ordered cyclic Jacobi, no sort -----------------------
-  for (int sweep = 0; sweep < sweeps; ++sweep) {
+#pragma unroll 1
+  for (int sweep = 0; sweep < kSweeps; ++sweep) {
     for (int r = 0; r < N - 1; ++r) {
       const int* partner = k.partner[r];
       const float* sgn = k.sgn[r];
@@ -302,11 +306,11 @@ template <int N>
 cudaError_t launch(const float* cpp, const float* cpm, const float* r1,
                    const float* r2, const float* mu0, float* kk, float* gp,
                    float* gm, float* zp, float* zm, int nlyr, int ncol,
-                   int sweeps, const EigBeamConsts& k, cudaStream_t stream) {
+                   const EigBeamConsts& k, cudaStream_t stream) {
   const int threads = 64;
   dim3 grid((ncol + threads - 1) / threads, nlyr);
   eig_beam_kernel<N><<<grid, threads, 0, stream>>>(
-      cpp, cpm, r1, r2, mu0, kk, gp, gm, zp, zm, ncol, sweeps, k);
+      cpp, cpm, r1, r2, mu0, kk, gp, gm, zp, zm, ncol, k);
   return cudaGetLastError();
 }
 
@@ -315,7 +319,7 @@ cudaError_t launch(const float* cpp, const float* cpm, const float* r1,
 extern "C" int sbdart_eig_beam(
     const float* cpp, const float* cpm, const float* r1, const float* r2,
     const float* mu0, float* kk, float* gp, float* gm, float* zp, float* zm,
-    int nlyr, int n, int ncol, int sweeps, const float* consts_host,
+    int nlyr, int n, int ncol, const float* consts_host,
     cudaStream_t stream) {
   if (nlyr <= 0 || ncol <= 0) return 0;
   EigBeamConsts k;
@@ -324,15 +328,15 @@ extern "C" int sbdart_eig_beam(
   switch (n) {
     case 4:
       err = launch<4>(cpp, cpm, r1, r2, mu0, kk, gp, gm, zp, zm, nlyr, ncol,
-                      sweeps, k, stream);
+                      k, stream);
       break;
     case 6:
       err = launch<6>(cpp, cpm, r1, r2, mu0, kk, gp, gm, zp, zm, nlyr, ncol,
-                      sweeps, k, stream);
+                      k, stream);
       break;
     case 8:
       err = launch<8>(cpp, cpm, r1, r2, mu0, kk, gp, gm, zp, zm, nlyr, ncol,
-                      sweeps, k, stream);
+                      k, stream);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

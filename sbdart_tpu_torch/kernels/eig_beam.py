@@ -36,9 +36,9 @@ from sbdart_tpu_torch.kernels.blocktri_rt import solve_step
 from sbdart_tpu_torch.ops.lane import lmatmul as _mm
 from sbdart_tpu_torch.ops.lane import lmatvec as _mv
 
-# Jacobi sweeps of the float32 kernel, the reference's DEFAULT_SWEEPS
-# (pallas/eig.py:378-392, measured converged at 3).  The float64 route
-# runs the reference lane route's 6 (ops/lane.py:260).
+# Jacobi sweeps of the float32 kernel (kSweeps in csrc/eig_beam.cu), the
+# reference's DEFAULT_SWEEPS (pallas/eig.py:378-392, measured converged at
+# 3).  The float64 route runs the reference lane route's 6 (ops/lane.py:260).
 SWEEPS_F32 = 3
 SWEEPS_F64 = 6
 
@@ -255,7 +255,7 @@ def eig_beam_chain(cppl, cpml, r1, r2, mu0, mu, w):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.sbdart_eig_beam(
             *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
-            nlyr, n, b, SWEEPS_F32, consts.ctypes.data, stream,
+            nlyr, n, b, consts.ctypes.data, stream,
         )
     eig_beam_chain.launches += 1
     _build.check(code, "eig_beam_chain")

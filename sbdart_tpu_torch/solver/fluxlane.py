@@ -12,8 +12,10 @@ layout [L, *, B].  The front end emits every per-layer quantity:
   * nstr 8/12/16: delta-M, the scattering matrices and beam right-hand
     side as einsums, then the B4 kernel (kernels/eig_beam.py).
 
-The boundary-value problem goes to B2 (kernels/blocktri_n2.py) at N = 2
-and to B5 (kernels/blocktri_rt.py) at N >= 4.  Plain torch glue does the
+The boundary-value problem goes to B2 (kernels/blocktri_n2.py) at N = 2;
+at N >= 4 to B6 (kernels/blocktri_rt_streamed.py) where the reference
+streams its solve, which is at N = 8 from 42 layers on, and to B5
+(kernels/blocktri_rt.py) elsewhere.  Plain torch glue does the
 rest: tau cumsums, beam exponentials, the thermal particular solution,
 the particular solution at layer bounds, the surface and top emission,
 the Lambertian surface operators, the BVP right-hand side, boundary
@@ -40,6 +42,11 @@ from sbdart_tpu_torch.kernels.blocktri_n2 import (
 from sbdart_tpu_torch.kernels.blocktri_rt import (
     block_thomas_rt,
     block_thomas_rt_plain,
+)
+from sbdart_tpu_torch.kernels.blocktri_rt_streamed import (
+    block_thomas_rt_streamed,
+    block_thomas_rt_streamed_plain,
+    reference_streams,
 )
 from sbdart_tpu_torch.kernels.eig_beam import (
     SWEEPS_F32,
@@ -328,6 +335,9 @@ def solve_rte_flux_lane(dtauc, ssalb_in, pmom, *, fbeam, umu0, fisot,
     n = nstr // 2
     if n == 2:
         solve = block_thomas_rt_n2 if kernels else block_thomas_rt_n2_plain
+    elif reference_streams(nlyr, n):
+        solve = (block_thomas_rt_streamed if kernels
+                 else block_thomas_rt_streamed_plain)
     else:
         solve = block_thomas_rt if kernels else block_thomas_rt_plain
     xs = solve(fe.gp, fe.gm, fe.ee, sysm.refl, sysm.rhs)

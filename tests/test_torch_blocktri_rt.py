@@ -1,7 +1,10 @@
-"""B5 (general-n fused SETMTX + SOLVE0): the port's plain torch version
-against the JAX package's block_thomas_rt in interpret mode, at n = 4 and 8
-with layer counts small enough that the reference takes its whole-column
-kernel (_rt_kernel), and against a dense float64 solve.
+"""B5 and B6 (general-n fused SETMTX + SOLVE0, full-W and rank-N factor
+history): the port's plain torch versions against the JAX package in
+interpret mode, B5 against block_thomas_rt at n = 4, 6 and 8 with layer
+counts small enough that the reference takes its whole-column kernel
+(_rt_kernel), B6 against the reference's streamed kernels
+(_block_thomas_rt_streamed) with several layer chunks, both against a dense
+float64 solve.  The port picks B6 exactly where the reference streams.
 
 Inputs are the conditioned problems of tests/test_pallas_kernels.py
 (_rt_problem).  Kernel-to-kernel bar: the reference's interpret bar
@@ -11,12 +14,16 @@ elimination step against the reference's _solve_step, and the whole
 solve on a column whose first pivot needs a row exchange.
 """
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from test_torch_blocktri_n2 import dense_solve, rt_problem
 
+import sbdart_tpu.pallas.blocktri as ref_blocktri
 from sbdart_tpu.pallas.blocktri import _solve_step as ref_solve_step
 from sbdart_tpu.pallas.blocktri import block_thomas_rt as ref_block_thomas_rt
 from sbdart_tpu_torch.kernels.blocktri_rt import (
@@ -24,10 +31,19 @@ from sbdart_tpu_torch.kernels.blocktri_rt import (
     block_thomas_rt_plain,
     solve_step,
 )
+from sbdart_tpu_torch.kernels.blocktri_rt_streamed import (
+    block_thomas_rt_bwd,
+    block_thomas_rt_fwd,
+    block_thomas_rt_fwd_plain,
+    block_thomas_rt_streamed,
+    block_thomas_rt_streamed_plain,
+    reference_streams,
+)
 
 
 @pytest.mark.parametrize("nlyr,n,b,coupling", [
     (5, 4, 128, 0.4), (9, 4, 130, 0.4), (6, 8, 130, 0.15), (2, 8, 40, 0.4),
+    (5, 6, 130, 0.3),
 ])
 def test_blocktri_rt_plain_matches_pallas_interpret(nlyr, n, b, coupling):
     prob = [x.astype(np.float32)
@@ -100,3 +116,90 @@ def test_blocktri_rt_wrapper_takes_plain_version_on_cpu():
     before = block_thomas_rt.launches
     assert torch.equal(block_thomas_rt(*prob), block_thomas_rt_plain(*prob))
     assert block_thomas_rt.launches == before
+
+
+@pytest.mark.parametrize("nlyr,n,b,coupling,chunk", [
+    (5, 4, 130, 0.4, 2), (9, 6, 20, 0.4, 4), (6, 6, 40, 0.3, 6),
+    (7, 8, 16, 0.15, 3),
+])
+def test_blocktri_rt_streamed_plain_matches_pallas_interpret(
+        nlyr, n, b, coupling, chunk):
+    """B6 against the reference's two streamed kernels, with layer chunks
+    that leave padded layers (5 = 2 + 2 + 1, 9, 7) and one that does not."""
+    prob = [x.astype(np.float32)
+            for x in rt_problem(nlyr, n, b, coupling=coupling)]
+    ref = np.asarray(ref_blocktri._block_thomas_rt_streamed(
+        *(jnp.asarray(x) for x in prob), tile_b=512, interpret=True,
+        layer_chunk=chunk))
+    got = block_thomas_rt_streamed_plain(*(torch.from_numpy(x) for x in prob))
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("nlyr,n,b", [(7, 4, 12), (4, 8, 6), (5, 6, 5),
+                                      (1, 4, 3)])
+def test_blocktri_rt_streamed_plain_solves_assembled_system_f64(nlyr, n, b):
+    prob = rt_problem(nlyr, n, b, coupling=0.4, seed=3)
+    want = dense_solve(*prob)
+    got = block_thomas_rt_streamed(
+        *(torch.from_numpy(x) for x in prob)).numpy()
+    assert np.abs(got - want).max() <= 1e-11 * np.abs(want).max()
+
+
+def test_blocktri_rt_streamed_plain_pivots_at_reference_f32_floor():
+    """The row-exchange case above, through B6 and the reference's
+    streamed kernels (two chunks of two layers)."""
+    prob = [x.astype(np.float32)
+            for x in rt_problem(4, 4, 130, coupling=0.4, seed=9)]
+    prob[1][0, 0, 0, :] = 0.0
+    prob[1][0, 1, 0, :] = 3.0
+    truth = dense_solve(*(x.astype(np.float64) for x in prob))
+    ref = np.asarray(ref_blocktri._block_thomas_rt_streamed(
+        *(jnp.asarray(x) for x in prob), tile_b=512, interpret=True,
+        layer_chunk=2))
+    got = block_thomas_rt_streamed_plain(
+        *(torch.from_numpy(x) for x in prob)).numpy()
+    norm = np.abs(truth).max()
+    err_ref = np.abs(ref - truth).max() / norm
+    err_got = np.abs(got - truth).max() / norm
+    assert np.isfinite(got).all()
+    assert err_ref < 5e-3 and err_got < 5e-3, (err_got, err_ref)
+    assert err_got <= 2.0 * err_ref + 1e-6, (err_got, err_ref)
+
+
+@pytest.mark.parametrize("n,first", [(4, 147), (6, 71), (8, 42)])
+def test_streams_where_the_reference_streams(monkeypatch, n, first):
+    """reference_streams against the reference's own routing, observed by
+    tracing block_thomas_rt abstractly with its streamed entry recorded."""
+    taken = []
+
+    def record(gp, gm, ee, refl, rhs, **_):
+        taken.append(gp.shape[0])
+        return jnp.zeros(rhs.shape, rhs.dtype)
+
+    monkeypatch.setattr(ref_blocktri, "_block_thomas_rt_streamed", record)
+    route = functools.partial(ref_block_thomas_rt.__wrapped__,
+                              interpret=True)
+    for nlyr in (1, first - 1, first, first + 23):
+        spec = jax.ShapeDtypeStruct
+        f32 = jnp.float32
+        taken.clear()
+        jax.eval_shape(route, spec((nlyr, n, n, 3), f32),
+                       spec((nlyr, n, n, 3), f32), spec((nlyr, n, 3), f32),
+                       spec((n, n, 3), f32), spec((nlyr, 2 * n, 3), f32))
+        assert bool(taken) == reference_streams(nlyr, n), (n, nlyr)
+        assert reference_streams(nlyr, n) == (nlyr >= first)
+
+
+def test_blocktri_rt_streamed_wrappers_take_plain_versions_on_cpu():
+    prob = [torch.from_numpy(x.astype(np.float32))
+            for x in rt_problem(3, 6, 9, coupling=0.4)]
+    before = (block_thomas_rt_fwd.launches, block_thomas_rt_bwd.launches)
+    cs, ys = block_thomas_rt_fwd(*prob)
+    cs_p, ys_p = block_thomas_rt_fwd_plain(*prob)
+    assert cs.shape == (3, 12, 6, 9) and ys.shape == (3, 12, 9)
+    assert torch.equal(cs, cs_p) and torch.equal(ys, ys_p)
+    assert torch.equal(block_thomas_rt_bwd(*prob[:3], cs, ys),
+                       block_thomas_rt_streamed_plain(*prob))
+    assert (block_thomas_rt_fwd.launches,
+            block_thomas_rt_bwd.launches) == before

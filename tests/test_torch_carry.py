@@ -107,7 +107,8 @@ def test_profile_and_deck_equal_reference(cfg_kw):
 def test_port_imports_without_jax():
     mods = ("cli", "pipeline", "solver.fluxlane", "solver.planck",
             "solver.sources", "ops.lane", "kernels.eig_n2_scatter",
-            "kernels.eig_beam", "kernels.blocktri_rt", "kernels._build")
+            "kernels.eig_beam", "kernels.blocktri_rt",
+            "kernels.blocktri_rt_streamed", "kernels._build")
     code = ("import sys, importlib\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module('sbdart_tpu_torch.' + m)\n"

@@ -1,7 +1,7 @@
 """B4 (general-n eigen chain + beam solve): the port's plain torch version
 against the JAX package's layered Pallas kernel run through the
-interpreter (eig_beam_chain_lane_fused_layered, interpret=True), at N = 4
-and 8 (nstr 8 and 16), on the same float32 operands.
+interpreter (eig_beam_chain_lane_fused_layered, interpret=True), at N = 4,
+6 and 8 (nstr 8, 12 and 16), on the same float32 operands.
 
 Operands come from the flux path's own head (solver/fluxlane.py:
 general_operands) on random optics: ssalb U(0.05, 0.999) with one
@@ -68,8 +68,8 @@ def _sorted(kk, gp, gm):
 
 
 @pytest.fixture(scope="module",
-                params=[(8, 3, 16), (16, 2, 16), (16, 2, 130)],
-                ids=["n4", "n8", "n8-b130"])
+                params=[(8, 3, 16), (16, 2, 16), (16, 2, 130), (12, 3, 16)],
+                ids=["n4", "n8", "n8-b130", "n6"])
 def both(request):
     nstr, nlyr, b = request.param
     ops = beam_operands(nstr, nlyr, b)

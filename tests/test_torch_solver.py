@@ -15,12 +15,17 @@ against the JAX package's, on the same NumPy inputs.
     (measured: float64 cross-route 4.9e-8, float32 port vs reference
     7.5e-4).  Float64 is held at 1e-6, and in float32 each route is
     held to the reference's own distance from the float64 truth.
-  * nstr 4 with the thermal source, 8 and 16 solar, 16 thermal, on the
-    reference's _fused_flux_problem (tests/test_pallas_kernels.py:325-346,
-    6 layers x 16 columns): float32 against its fused_interpret route at
-    its bar 5e-4 (measured 2e-6 to 6.7e-5), float64 against its xla route
-    at 1e-10 (measured 3e-15 to 5e-13; the float64 route runs the plain
-    versions with 6 Jacobi sweeps);
+  * nstr 4 with the thermal source, 8 solar, 12 and 16 solar and
+    thermal, on the reference's _fused_flux_problem
+    (tests/test_pallas_kernels.py:325-346, 6 layers x 16 columns): float32
+    against its fused_interpret route at its bar 5e-4 (measured 9e-7 to
+    6.7e-5), float64 against its xla route at 1e-10 (measured 3e-15 to
+    5e-13; the float64 route runs the plain versions with 6 Jacobi
+    sweeps);
+  * nstr 16 at 42 layers, the first layer count at which the reference
+    streams its BVP solve (B6, rank-N history) and the port follows it:
+    the same bars (measured float32 9.7e-7 to 5.0e-6, float64 4.5e-15 to
+    2.0e-14);
   * the optically thin thermal band of tests/test_f32_path.py:147-183:
     float32 within 1e-2 of the float64 route and of the reference's
     float64 (the slope floor at work).
@@ -154,14 +159,15 @@ def fused_flux_problem(nstr, nlyr, b, planck, seed=0):
 
 
 PLANCK_KW = dict(planck=True, wvnlo=800.0, wvnhi=900.0, btemp=290.0)
-CASES = [(4, True), (8, False), (16, False), (16, True)]
+CASES = [(4, True), (8, False), (12, False), (12, True), (16, False),
+         (16, True)]
 _REF = {}
 
 
-def _reference(nstr, planck):
+def _reference(nstr, planck, nlyr=6):
     """The reference's float32 fused_interpret and float64 xla solves."""
-    if (nstr, planck) not in _REF:
-        args, kw = fused_flux_problem(nstr, 6, 16, planck)
+    if (nstr, planck, nlyr) not in _REF:
+        args, kw = fused_flux_problem(nstr, nlyr, 16, planck)
         extra = PLANCK_KW if planck else {}
         r32 = ref_solve_rte(
             *(jnp.asarray(a, jnp.float32) for a in args), nstr=nstr,
@@ -173,8 +179,8 @@ def _reference(nstr, planck):
             **{k: jnp.asarray(v) for k, v in kw.items()}, **extra,
             onlyfl=True, dtype=jnp.float64, eig_method="xla",
             bvp_method="scan")
-        _REF[nstr, planck] = (args, kw, extra, r32, r64)
-    return _REF[nstr, planck]
+        _REF[nstr, planck, nlyr] = (args, kw, extra, r32, r64)
+    return _REF[nstr, planck, nlyr]
 
 
 @pytest.mark.parametrize("nstr,planck", CASES)
@@ -193,6 +199,22 @@ def test_solve_rte_general_f64_matches_reference_generic_route(nstr, planck):
     got = solve_rte(*args, nstr=nstr, **kw, **extra, dtype=torch.float64)
     for name in OUTPUTS:
         err = _rel_err(getattr(got, name), getattr(r64, name))
+        assert err < 1e-10, (name, err)
+
+
+def test_solve_rte_streamed_bvp_shape_matches_reference():
+    from sbdart_tpu_torch.kernels.blocktri_rt_streamed import (
+        reference_streams)
+
+    assert reference_streams(42, 8) and not reference_streams(41, 8)
+    args, kw, _, r32, r64 = _reference(16, False, nlyr=42)
+    got32 = solve_rte(*args, nstr=16, **kw, dtype=torch.float32)
+    got64 = solve_rte(*args, nstr=16, **kw, dtype=torch.float64)
+    for name in ("rfldn", "flup", "uavg", "dfdt"):
+        err = _rel_err(getattr(got32, name), getattr(r32, name))
+        assert err < 5e-4, (name, err)
+    for name in OUTPUTS:
+        err = _rel_err(getattr(got64, name), getattr(r64, name))
         assert err < 1e-10, (name, err)
 
 
