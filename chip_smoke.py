@@ -12,26 +12,41 @@ Phases, one JSON line each; the first failure exits non-zero:
   3. kernel   each kernel against its plain torch version on the card at
               the main path's shapes, bar rtol 1e-4 / atol 1e-5 on every
               element of every output, with both device times
-              (torch.profiler) and both wall times (CUDA events): B1/B2 at
-              33 layers x 49152 columns, B3 (nstr=4 thermal front end) at
-              33 x 49152, B4 with the BVP kernels B5 (full-W history) and
-              B6 (rank-N history, forward and backward) at nstr 16 x 65
-              layers and nstr 8 x 33 layers x 6144 columns (the path runs
-              B6 at the first and B5 at the second; both are timed at
-              both), each also at an unaligned 130 columns;
+              (torch.profiler), both wall times (CUDA events) and the
+              bound (the larger of bytes over 3.35 TB/s and operations
+              over 67 TFLOP/s): B1/B2 at 33 layers x 49152 columns, B3
+              (nstr=4 thermal front end) at 33 x 49152, B4 with the BVP
+              kernels B5 (full-W history) and B6 (rank-N history, forward
+              and backward) at nstr 16 x 65 layers and nstr 8 x 33 layers
+              x 6144 columns (the path runs B6 at the first and B5 at the
+              second; both are timed at both); the radiance path's B7 at
+              the nstr=16 bench shape (16 modes, 5 cosines, 65 layers x
+              256 columns), B8 at 4 modes x 33 layers x 4096 columns, B4
+              on the flat radiance lane axis (16 x 65 x 256); and B5/B6 at
+              N = 2, 65 layers x 49152 columns; each also at 130 columns
+              or lanes;
   4. solve    solve_rte in float32 through the kernels against the plain
               path on the card (max-abs error / max-abs <= 5e-4), with
               band-columns/s for both, and the kernel path's device time
               split into each kernel and the glue, its device operations
-              per solve and its idle share: nstr=4 solar at 16384
-              band-columns x 3 k-terms x 33 layers, nstr=16 solar at
-              2048 x 3 x 65 (B4, B6), nstr=4 thermal at 16384 x 3 x 33;
+              per solve and its idle share: fluxes at nstr=4 solar
+              (16384 band-columns x 3 k-terms x 33 layers), nstr=16 solar
+              (2048 x 3 x 65: B4, B6), nstr=4 thermal (16384 x 3 x 33)
+              and nstr=4 solar at 65 layers (B1, B5 at N = 2); radiances
+              (uu at 5 cosines x 3 azimuths, and the fluxes) at nstr=4
+              (4096 x 33: B8, B2, B7), nstr=16 (256 x 65 and 2048 x 65:
+              B4, B6, B7) and nstr=8 on a Hapke BRDF with the thermal
+              source (512 x 33: B4, B5, B7);
   5. cli      the sbdart CLI on BASELINE config 1 (Lambertian closure
               botup/botdn = albcon to 1e-5), config 2 (tropical LW, 4-40 um,
               nstr=4: OLR finite, positive, and within 1e-2 of the float64
-              plain route on the card) and config 3 (water cloud, nstr=16,
+              plain route on the card), config 3 (water cloud, nstr=16,
               SW+LW, 32 layers, so B4 and B5: iout=10 line finite; closure on
-              its solar-only part).
+              its solar-only part) and config 4 (rural aerosol, nstr=16,
+              radiances at 6 zenith x 3 azimuth angles, iout=20: uu finite,
+              >= -1e-9 on the float64 route, the float32 route within
+              1e-2 of it, the mean TOA radiance above the same run's
+              without aerosol).
 
 Kernel launch counters are zeroed just before each run of phases 4 and
 5 and read just after it: each kernel must have been launched by the runs
@@ -83,7 +98,23 @@ INPUT_C3 = """ &INPUT
 # bench.py:_throughput(nstr=16, nlyr=65, nbc=2048)
 NLYR16, NBC16 = 65, 2048
 B16 = NBC16 * NK               # columns the nstr=16 kernels see
-OLR_BAR = 1e-2                 # f32 kernel path vs f64 plain route
+OLR_BAR = 1e-2                 # f32 kernel path vs f64 plain route (CLI)
+# bench.py:_radiance_throughput's view grid and shape (nstr=16, 65 layers,
+# 256 band-columns, 65 moments)
+UMU_VIEW = (0.2, 0.5, 0.9, -0.3, -0.8)
+PHI_VIEW = (0.0, 90.0, 180.0)
+NBC_RAD16 = 256
+# BASELINE config 4: rural aerosol, 16 streams, radiances on a uzen x phi
+# grid (0.25-2.0 um at 0.005 um)
+INPUT_C4 = """ &INPUT
+   idatm=2, iaer={iaer}, vis=10, albcon=0.1, nstr=16, sza=40,
+   wlinf=0.25, wlsup=2.0, wlinc=0.005,
+   nzen=6, uzen=0,30,60,75,120,150, nphi=3, phi=0,90,180, iout=20
+ /
+"""
+# the card's peaks (H100 SXM data sheet)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
 
 
 class SmokeFailure(RuntimeError):
@@ -113,6 +144,39 @@ def timed_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, reps: int, replays: int = 5) -> float:
+    """Device milliseconds per call of fn(), a kernel wrapper: `reps`
+    calls captured in one CUDA graph and replayed, timed with CUDA events,
+    so the host's dispatch is not in the time."""
+    import torch
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / reps)
+    del graph
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def device_events(fn, reps: int):
     """The device operations (kernels, copies, fills) of `reps` calls of
     fn(), from torch.profiler, as (name, microseconds) pairs."""
@@ -130,24 +194,25 @@ def device_events(fn, reps: int):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def device_ms(fn, reps: int, match: str | None = None) -> float:
-    """Device milliseconds per call of fn(): the summed durations of the
-    CUDA work it launches (only kernels whose name holds `match`, if
-    given).  Host dispatch gaps are not counted."""
+def device_ms(fn, reps: int, match: str | None = None) -> float | None:
+    """Device milliseconds per call of fn() as torch.profiler reports
+    them: the summed durations of the CUDA work it launches (only kernels
+    whose name holds `match`, if given), or None when the profiler
+    reported none (it can lose a window's kernel records)."""
     us = [t for name, t in device_events(fn, reps)
           if match is None or match in name]
-    if not us:
-        raise SmokeFailure(f"profiler saw no device work ({match})")
-    return sum(us) / reps / 1e3
+    return sum(us) / reps / 1e3 if us else None
 
 
 def device_breakdown(fn, reps: int) -> dict:
     """Per call of fn(): device ms in all, in each of the port's kernels
     (by its __global__ name) and in the rest (the torch glue), and the
-    number of device operations."""
+    number of device operations, from torch.profiler (None where it
+    reported no device work)."""
     ev = device_events(fn, reps)
     if not ev:
-        raise SmokeFailure("profiler saw no device work")
+        return {"device_busy_ms": None, "kernel_device_ms": None,
+                "glue_device_ms": None, "device_ops_per_solve": None}
     busy = sum(t for _, t in ev) / reps / 1e3
     per = {}
     for k, spec in KERNELS.items():
@@ -252,6 +317,129 @@ def general_kernel_operands(prob, nstr):
     return front, (fe.gp, fe.gm, fe.ee, sysm.refl, sysm.rhs)
 
 
+def radiance_problem(nbc, nlyr, device, *, nstr, seed=0, planck=False,
+                     brdf=False):
+    """solve_rte's radiance inputs at bench.py:_radiance_throughput's
+    distributions: dtau U(0.001, 0.6), ssalb U(0.05, 0.999), 65 HG moments
+    of g U(0, 0.85), a beam in every column, umu0 U(0.2, 1), albedo
+    U(0, 0.8), the 5 x 3 view grid; with `planck` the thermal case of
+    flux_problem, with `brdf` DISORT's default Hapke surface.  Returns
+    (dtau, ssalb, pmom) and the keywords."""
+    import numpy as np
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def u(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=device)
+
+    dtau = u(0.001, 0.6, nbc, nlyr)
+    ssalb = u(0.05, 0.999, nbc, nlyr)
+    g = u(0.0, 0.85, nbc, nlyr)
+    pmom = g[..., None] ** torch.arange(65, device=device)
+    kw = dict(nstr=nstr, fbeam=torch.ones(nbc, device=device),
+              umu0=u(0.2, 1.0, nbc), albedo=u(0.0, 0.8, nbc), onlyfl=False,
+              umu=np.array(UMU_VIEW), phi=np.array(PHI_VIEW))
+    if planck:
+        kw.update(planck=True, wvnlo=800.0, wvnhi=900.0, btemp=290.0,
+                  fisot=0.3, temper=torch.linspace(250.0, 290.0, nlyr + 1,
+                                                   device=device))
+    if brdf:
+        from sbdart_tpu_torch.solver.brdf import HapkeBrdf
+
+        kw["brdf"] = HapkeBrdf()
+    return (dtau, ssalb, pmom), kw
+
+
+def radiance_kernel_operands(args, kw):
+    """The operands the radiance path hands its three kernel entries (the
+    flat eigen chain, the BVP solve and B7), captured from one run of its
+    plain path: {entry: (positional args, keyword args)}."""
+    import torch
+
+    from sbdart_tpu_torch.solver import radlane
+    from sbdart_tpu_torch.solver.disort import solve_rte
+
+    seen = {}
+    names = ("eig_beam_chain_lane", "solve_bvp", "rad_source_lane_plain")
+    saved = {n: getattr(radlane, n) for n in names}
+
+    def spy(name):
+        def call(*a, **k):
+            seen[name] = (a, k)
+            return saved[name](*a, **k)
+        return call
+
+    try:
+        for n in names:
+            setattr(radlane, n, spy(n))
+        solve_rte(*args, eig_method="plain", dtype=torch.float32, **kw)
+    finally:
+        for n, fn in saved.items():
+            setattr(radlane, n, fn)
+    return seen
+
+
+def _ge_flops(m, r):
+    """Operations of a pivoted elimination of an m x m system with r
+    right-hand sides, back-substitution included."""
+    return 2.0 * m**3 / 3.0 + 2.0 * m * m * r
+
+
+def flops_of(kname, args):
+    """The operations a kernel does on these inputs, counted from the
+    formulas of its source (an estimate to within a small factor: each
+    kernel is bound by its bytes except where noted in PERF.md)."""
+    from sbdart_tpu_torch.kernels.eig_beam import SWEEPS_F32
+
+    if kname in ("eig_n2_deltam", "eig_n2_scatter"):
+        lanes = args[0].numel()
+        return (250 if kname == "eig_n2_deltam" else 230) * lanes
+    if kname == "eig_n2_planar":
+        return 150 * args[0].shape[0] * args[0].shape[-1]
+    if kname == "eig_beam":
+        nlyr, n, _, b = args[0].shape
+        per = (n**3 / 3 + SWEEPS_F32 * (n * (n - 1) / 2) * 12 * n
+               + 5 * n**3 + 2 * n**3 + _ge_flops(n, 1))
+        return nlyr * b * per
+    if kname == "radsrc":
+        nm, nu, n, nstr = args[0].shape
+        lb = args[3].shape[-1]
+        per = 4 * n * nstr + 8 * n * n + 4 * n + 3 * nstr + 40 * n + 30
+        return nm * nu * lb * per
+    nlyr, n, _, b = args[0].shape
+    m = 2 * n
+    per = {
+        "blocktri_rt_n2": _ge_flops(m, m + 1) + 2 * n * m * (m + 1)
+        + 4 * n**3 + 2 * m * m,
+        "blocktri_rt": _ge_flops(m, m + 1) + 2 * n * m * (m + 1)
+        + 4 * n**3 + 2 * m * m,
+        "blocktri_rt_fwd": _ge_flops(m, n + 1) + 4 * n * m * n + 2 * n * m
+        + 4 * n**3,
+        "blocktri_rt_bwd": 4 * n * m + m,
+    }[kname]
+    return nlyr * b * per
+
+
+def bound_of(kname, args, outs):
+    """The least time the card could take for a kernel's work: the larger
+    of its bytes (each tensor input read once, each output written once)
+    over 3.35 TB/s and its operations over 67 TFLOP/s (float32)."""
+    import torch
+
+    seen, nbytes = set(), 0
+    for t in list(args) + list(outs):
+        if isinstance(t, torch.Tensor) and t.data_ptr() not in seen:
+            seen.add(t.data_ptr())
+            nbytes += t.numel() * t.element_size()
+    flops = flops_of(kname, args)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / F32_FLOPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
 def compare(name, got, want):
     """Worst error and bar misses of one output plane."""
     import torch
@@ -272,11 +460,12 @@ def compare(name, got, want):
     }
 
 
-def check_kernel(kname, names, kern, plain, b):
+def check_kernel(kname, names, kern, plain, b, args=()):
     """One kernel against its plain version on the same operands: a row
-    of per-output comparisons.  The kernel follows its plain version's
-    operation order on the same inputs, eigenmode order included, so any
-    element outside the bar fails."""
+    of per-output comparisons, and the kernel's bound on these operands
+    (`args`, the tensors it reads).  The kernel follows its plain
+    version's operation order on the same inputs, eigenmode order
+    included, so any element outside the bar fails."""
     got, want = kern(), plain()
     if not isinstance(got, (tuple, list)):
         got, want = (got,), (want,)
@@ -285,18 +474,35 @@ def check_kernel(kname, names, kern, plain, b):
         if o["misses"]:
             raise SmokeFailure(f"{kname}/{o['output']} at B={b}: "
                                f"{o['misses']} misses of the bar")
-    return {"kernel": kname, "outputs": outs}
+    row = {"kernel": kname, "outputs": outs}
+    if args:
+        row.update(bound_of(kname, args, got))
+    return row
 
 
 def time_kernel(row, kern, plain, reps, plain_reps):
-    """ms / plain_ms: device time (profiler, the kernel's own launches);
-    the wall figures add the host's dispatch gaps (CUDA events)."""
+    """ms: the kernel's device time per launch (a CUDA graph of `reps`
+    launches, CUDA events); wall_ms: per wrapper call run eagerly, the
+    host's dispatch included (CUDA events); plain_ms: per call of the
+    plain version, run eagerly (CUDA events); profiler_ms: the kernel's
+    time as torch.profiler reports it (None when it lost the records)."""
     row.update(
-        ms=device_ms(kern, reps, match=KERNELS[row["kernel"]][4]),
-        plain_ms=device_ms(plain, plain_reps),
+        ms=graph_ms(kern, reps),
+        plain_ms=timed_ms(plain, plain_reps, warmup=1),
         wall_ms=timed_ms(kern, reps),
-        plain_wall_ms=timed_ms(plain, plain_reps, warmup=1),
+        profiler_ms=device_ms(kern, reps, match=KERNELS[row["kernel"]][4]),
     )
+
+
+def merge(summary, part):
+    """Fold one phase's kernels summary into the whole run's: the largest
+    error over both, the times and bound of whichever holds them."""
+    for k, entry in part.items():
+        mine = summary.setdefault(k, {"max_abs_err": 0.0})
+        err = max(mine["max_abs_err"], entry["max_abs_err"])
+        mine.update(entry)
+        mine["max_abs_err"] = err
+    return summary
 
 
 def fold(summary, row, main):
@@ -306,7 +512,9 @@ def fold(summary, row, main):
     entry["max_abs_err"] = max(entry["max_abs_err"],
                                *(o["max_abs_err"] for o in row["outputs"]))
     if main:
-        entry.update(ms=row["ms"], plain_ms=row["plain_ms"])
+        entry.update(ms=row["ms"], plain_ms=row["plain_ms"],
+                     bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                     library_ms=None)
 
 
 EIG_NAMES = ("kk", "gp", "gm", "zp", "zm")
@@ -331,15 +539,15 @@ def phase_kernels(device, reps):
                 lambda: eig_beam_deltam_scatter_n2(
                     *b1_ops, tab, use_deltam=use_dm),
                 lambda: eig_beam_deltam_scatter_n2_plain(
-                    *b1_ops, tab, use_deltam=use_dm), reps),
+                    *b1_ops, tab, use_deltam=use_dm), reps, b1_ops),
             "blocktri_rt_n2": (
                 ("xs",), lambda: block_thomas_rt_n2(*b2_ops),
                 lambda: block_thomas_rt_n2_plain(*b2_ops),
-                max(3, reps // 4)),
+                max(3, reps // 4), b2_ops),
         }
         rows = []
-        for kname, (names, kern, plain, plain_reps) in calls.items():
-            row = check_kernel(kname, names, kern, plain, b)
+        for kname, (names, kern, plain, plain_reps, args) in calls.items():
+            row = check_kernel(kname, names, kern, plain, b, args)
             if b == B:
                 time_kernel(row, kern, plain, reps, plain_reps)
             fold(summary, row, main=b == B)
@@ -349,15 +557,35 @@ def phase_kernels(device, reps):
     return summary
 
 
+def bvp_calls(bvp, hist):
+    """The check_kernel calls of B5 and B6 (forward; backward on the plain
+    forward's history `hist`) on one BVP's operands."""
+    from sbdart_tpu_torch.kernels.blocktri_rt import (
+        block_thomas_rt, block_thomas_rt_plain)
+    from sbdart_tpu_torch.kernels.blocktri_rt_streamed import (
+        block_thomas_rt_bwd, block_thomas_rt_bwd_plain, block_thomas_rt_fwd,
+        block_thomas_rt_fwd_plain)
+
+    return {
+        "blocktri_rt": (
+            ("xs",), lambda: block_thomas_rt(*bvp),
+            lambda: block_thomas_rt_plain(*bvp), 2, bvp),
+        "blocktri_rt_fwd": (
+            ("cs", "ys"), lambda: block_thomas_rt_fwd(*bvp),
+            lambda: block_thomas_rt_fwd_plain(*bvp), 2, bvp),
+        "blocktri_rt_bwd": (
+            ("xs",), lambda: block_thomas_rt_bwd(*bvp[:3], *hist),
+            lambda: block_thomas_rt_bwd_plain(*bvp[:3], *hist), 3,
+            bvp[:3] + tuple(hist)),
+    }
+
+
 def phase_kernels_general(device, reps):
     """B3 (nstr=4 thermal front end), B4, B5 and B6 (nstr 16 and 8)
     against their plain versions at the main path's shapes and at 130
     columns.  B6's backward kernel is held against its plain version on
     the plain forward's history."""
-    from sbdart_tpu_torch.kernels.blocktri_rt import (
-        block_thomas_rt, block_thomas_rt_plain)
     from sbdart_tpu_torch.kernels.blocktri_rt_streamed import (
-        block_thomas_rt_bwd, block_thomas_rt_bwd_plain, block_thomas_rt_fwd,
         block_thomas_rt_fwd_plain, reference_streams)
     from sbdart_tpu_torch.kernels.eig_beam import (
         eig_beam_chain, eig_beam_chain_plain)
@@ -380,29 +608,21 @@ def phase_kernels_general(device, reps):
             if nstr == 4:
                 calls = {"eig_n2_scatter": (
                     EIG_NAMES, lambda: eig_beam_scatter_n2(*front),
-                    lambda: eig_beam_scatter_n2_plain(*front), reps)}
+                    lambda: eig_beam_scatter_n2_plain(*front), reps, front)}
             else:
                 hist = block_thomas_rt_fwd_plain(*bvp)
                 calls = {
                     "eig_beam": (
                         EIG_NAMES, lambda: eig_beam_chain(*front),
                         lambda: eig_beam_chain_plain(*front),
-                        max(3, reps // 4)),
-                    "blocktri_rt": (
-                        ("xs",), lambda: block_thomas_rt(*bvp),
-                        lambda: block_thomas_rt_plain(*bvp), 2),
-                    "blocktri_rt_fwd": (
-                        ("cs", "ys"), lambda: block_thomas_rt_fwd(*bvp),
-                        lambda: block_thomas_rt_fwd_plain(*bvp), 2),
-                    "blocktri_rt_bwd": (
-                        ("xs",), lambda: block_thomas_rt_bwd(*bvp[:3], *hist),
-                        lambda: block_thomas_rt_bwd_plain(*bvp[:3], *hist),
-                        3),
+                        max(3, reps // 4), front),
+                    **bvp_calls(bvp, hist),
                 }
             streams = nstr > 4 and reference_streams(nlyr, nstr // 2)
             rows = []
-            for kname, (names, kern, plain, plain_reps) in calls.items():
-                row = check_kernel(kname, names, kern, plain, b)
+            for kname, (names, kern, plain, plain_reps, args) in \
+                    calls.items():
+                row = check_kernel(kname, names, kern, plain, b, args)
                 if cols == nbc:
                     time_kernel(row, kern, plain, reps, plain_reps)
                 row["on_main_path"] = (
@@ -415,6 +635,145 @@ def phase_kernels_general(device, reps):
                   "columns": b, "bar": {"rtol": RTOL, "atol": ATOL},
                   "results": rows})
     return summary
+
+
+def phase_kernels_radiance(device, reps):
+    """The radiance path's kernels against their plain versions on the
+    operands the path gives them: B7 at the nstr=16 bench shape (M = 16,
+    U = 5, LB = 65 x 256) and at LB = 130 (65 x 2); B4 on the flat lane
+    axis of that solve (16 x 65 x 256 lanes); B8 at the nstr=4 shape
+    (4 x 33 x 4096 lanes) and at its first 130 lanes."""
+    from sbdart_tpu_torch.kernels.eig_beam import (
+        eig_beam_chain, eig_beam_chain_plain)
+    from sbdart_tpu_torch.kernels.eig_n2 import (
+        eig_beam_chain_n2, eig_beam_chain_n2_plain)
+    from sbdart_tpu_torch.kernels.radsrc import (
+        rad_source_lane, rad_source_lane_plain)
+
+    summary = {}
+    for nstr, nlyr, nbc in ((16, NLYR16, NBC_RAD16), (16, NLYR16, 2),
+                            (4, NLYR, 4096)):
+        ops = radiance_kernel_operands(
+            *radiance_problem(nbc, nlyr, device, nstr=nstr))
+        (cppl, cpml, r1, r2, mu0, tab), _ = ops["eig_beam_chain_lane"]
+        flat = tuple(x.reshape((1,) + x.shape).contiguous()
+                     for x in (cppl, cpml, r1, r2)) + (mu0.contiguous(),)
+        main = nbc != 2
+        calls = {}
+        if nstr == 16:
+            *src, umu = ops["rad_source_lane_plain"][0]
+            src = tuple(x.contiguous() for x in src)
+            calls["radsrc"] = (
+                ("j",), lambda: rad_source_lane(*src, umu),
+                lambda: rad_source_lane_plain(*src, umu), 3, src)
+            if main:
+                calls["eig_beam"] = (
+                    EIG_NAMES, lambda: eig_beam_chain(*flat, tab.mu, tab.w),
+                    lambda: eig_beam_chain_plain(*flat, tab.mu, tab.w), 3,
+                    flat)
+        else:
+            for cols in (flat[0].shape[-1], 130):
+                sl = tuple(x[..., :cols].contiguous() for x in flat)
+                row = check_kernel(
+                    "eig_n2_planar", EIG_NAMES,
+                    lambda: eig_beam_chain_n2(*sl, tab),
+                    lambda: eig_beam_chain_n2_plain(*sl, tab), cols, sl)
+                if cols != 130:
+                    time_kernel(row, lambda: eig_beam_chain_n2(*sl, tab),
+                                lambda: eig_beam_chain_n2_plain(*sl, tab),
+                                reps, reps)
+                fold(summary, row, main=cols != 130)
+                emit({"phase": "kernel", "path": "radiance", "nstr": nstr,
+                      "lanes": cols, "bar": {"rtol": RTOL, "atol": ATOL},
+                      "results": [row]})
+        rows = []
+        for kname, (names, kern, plain, plain_reps, args) in calls.items():
+            row = check_kernel(kname, names, kern, plain, nbc, args)
+            if main:
+                time_kernel(row, kern, plain, reps, plain_reps)
+            fold(summary, row, main=main and kname == "radsrc")
+            rows.append(row)
+        if rows:
+            emit({"phase": "kernel", "path": "radiance", "nstr": nstr,
+                  "layers": nlyr, "band_columns": nbc,
+                  "bar": {"rtol": RTOL, "atol": ATOL}, "results": rows})
+    return summary
+
+
+def phase_kernels_bvp_n2(device, reps):
+    """B5 and B6 at N = 2 (nstr=4 beyond 51 layers: the reference's planar
+    tile no longer fits) against their plain versions, at 65 layers x
+    49152 columns and 130 columns."""
+    from sbdart_tpu_torch.kernels.blocktri_rt_streamed import (
+        block_thomas_rt_fwd_plain)
+
+    summary = {}
+    for nbc, nk in ((NBC, NK), (130, 1)):
+        _, _, _, bvp = kernel_operands(flux_problem(nbc, nk, 65, device))
+        hist = block_thomas_rt_fwd_plain(*bvp)
+        b = bvp[0].shape[-1]
+        rows = []
+        for kname, (names, kern, plain, plain_reps, args) in \
+                bvp_calls(bvp, hist).items():
+            row = check_kernel(kname, names, kern, plain, b, args)
+            if nbc == NBC:
+                time_kernel(row, kern, plain, reps, plain_reps)
+            fold(summary, row, main=False)
+            rows.append(row)
+        emit({"phase": "kernel", "nstr": 4, "layers": 65, "columns": b,
+              "bar": {"rtol": RTOL, "atol": ATOL}, "results": rows})
+    return summary
+
+
+def phase_radiance(device, reps, *, nstr, nbc, nlyr, planck=False,
+                   brdf=False):
+    """solve_rte(onlyfl=False) through the kernels against the plain path
+    on the card, timed: uu and the fluxes within 5e-4 of each field's
+    max."""
+    import torch
+
+    from sbdart_tpu_torch.solver.disort import solve_rte
+
+    args, kw = radiance_problem(nbc, nlyr, device, nstr=nstr, planck=planck,
+                                brdf=brdf)
+
+    def run(method):
+        return solve_rte(*args, eig_method=method, dtype=torch.float32, **kw)
+
+    out_k = run("auto")
+    out_p = run("plain")
+    errs = {}
+    for name in ("uu", "rfldir", "rfldn", "flup", "uavg", "dfdt"):
+        a, b = getattr(out_k, name), getattr(out_p, name)
+        if not (bool(torch.isfinite(a).all())
+                and bool(torch.isfinite(b).all())):
+            raise SmokeFailure(f"radiance {name}: non-finite output")
+        errs[name] = float((a - b).abs().max() / b.abs().max().clamp_min(1e-9))
+    if tuple(out_k.uu.shape) != (nbc, nlyr + 1, len(UMU_VIEW), len(PHI_VIEW)):
+        raise SmokeFailure(f"radiance uu: shape {tuple(out_k.uu.shape)}")
+    worst = max(errs[n] for n in ("uu", "rfldn", "flup", "uavg", "dfdt"))
+    k_ms = timed_ms(lambda: run("auto"), reps)
+    p_ms = timed_ms(lambda: run("plain"), 2, warmup=0)
+    dev = device_breakdown(lambda: run("auto"), max(2, reps // 2))
+    busy_ms = dev["device_busy_ms"]
+    rec = {"phase": "solve", "kind": "radiance", "nstr": nstr,
+           "planck": planck, "brdf": "hapke" if brdf else None,
+           "band_columns": nbc, "layers": nlyr, "umu": list(UMU_VIEW),
+           "phi": list(PHI_VIEW), "dtype": "float32", "rel_err": errs,
+           "bar": E2E_BAR, "kernel_path_ms": k_ms, "plain_path_ms": p_ms,
+           "kernel_path_bc_per_s": nbc / (k_ms / 1e3),
+           "plain_path_bc_per_s": nbc / (p_ms / 1e3),
+           "kernel_path_device_busy_ms": busy_ms,
+           "kernel_path_device_idle_share": (
+               None if busy_ms is None else max(0.0, 1.0 - busy_ms / k_ms)),
+           "kernel_path_kernel_device_ms": dev["kernel_device_ms"],
+           "kernel_path_glue_device_ms": dev["glue_device_ms"],
+           "kernel_path_device_ops": dev["device_ops_per_solve"]}
+    emit(rec)
+    if worst > E2E_BAR:
+        raise SmokeFailure(f"radiance nstr={nstr}: kernel vs plain path "
+                           f"{worst:.3g} > {E2E_BAR}")
+    return rec
 
 
 def phase_solve(device, reps, *, nstr=4, nbc=NBC, nlyr=NLYR, planck=False):
@@ -453,7 +812,8 @@ def phase_solve(device, reps, *, nstr=4, nbc=NBC, nlyr=NLYR, planck=False):
            "kernel_path_bc_per_s": nbc / (k_ms / 1e3),
            "plain_path_bc_per_s": nbc / (p_ms / 1e3),
            "kernel_path_device_busy_ms": busy_ms,
-           "kernel_path_device_idle_share": max(0.0, 1.0 - busy_ms / k_ms),
+           "kernel_path_device_idle_share": (
+               None if busy_ms is None else max(0.0, 1.0 - busy_ms / k_ms)),
            "kernel_path_kernel_device_ms": dev["kernel_device_ms"],
            "kernel_path_glue_device_ms": dev["glue_device_ms"],
            "kernel_path_device_ops": dev["device_ops_per_solve"]}
@@ -590,6 +950,65 @@ def phase_cli_config3():
     return rec
 
 
+def phase_cli_config4():
+    """BASELINE config 4 (rural aerosol, nstr=16, radiances at 6 zenith x
+    3 azimuth angles, iout=20), through the CLI in float32 on the kernels:
+    the iout=20 text as api.run renders it; the mean TOA radiance above
+    the same run's without aerosol (tests/test_pipeline.py:137-156); uu
+    finite and, as that test asks, >= -1e-9 on the float64 route (the
+    plain versions on the card); the float32 route within 1e-2 of it (of
+    its max), config 2's bar: the path integrals' 1 - exp(-x) loses
+    float32 digits on layers as thin as 1e-5 (as the reference's float32
+    lane path does), and near-zero radiances come out a rounding below
+    zero."""
+    import numpy as np
+
+    from sbdart_tpu_torch.api import run
+    from sbdart_tpu_torch.namelist import loads_namelist
+    from sbdart_tpu_torch.outputs import format_iout, integrate_spectral
+
+    cfg, text, cli_s = run_cli(INPUT_C4.format(iaer=1))
+    res = run(cfg)
+    if format_iout(res) != text:
+        raise SmokeFailure("cli config 4: text differs from api.run's")
+    uu = res.uu
+    if uu is None or uu.shape != (len(res.wl), res.nlev, 6, 3):
+        raise SmokeFailure(f"cli config 4: uu shape "
+                           f"{None if uu is None else uu.shape}")
+    t0 = time.perf_counter()
+    uu64 = run(cfg, dtype="float64").uu
+    f64_s = time.perf_counter() - t0
+    clean = run(loads_namelist(INPUT_C4.format(iaer=0)))
+
+    def toa_mean(r):
+        return float(integrate_spectral(r, r.uu)[0].mean())
+
+    scale = float(np.abs(uu64).max())
+    rec = {"phase": "cli", "input": "BASELINE config 4",
+           "wavelengths": int(len(res.wl)), "seconds": cli_s,
+           "iout20_head": text.splitlines()[:4],
+           "uu_min": float(uu.min()), "uu_max": float(uu.max()),
+           "uu_f64_min": float(uu64.min()),
+           "uu_rel_err_vs_f64": float(np.abs(uu - uu64).max()) / scale,
+           "bar": OLR_BAR,
+           "f64_plain_seconds": f64_s,
+           "toa_mean_radiance": toa_mean(res),
+           "toa_mean_radiance_no_aerosol": toa_mean(clean)}
+    emit(rec)
+    if not (np.isfinite(uu).all() and np.isfinite(uu64).all()):
+        raise SmokeFailure("cli config 4: non-finite radiances")
+    if rec["uu_f64_min"] < -1e-9:
+        raise SmokeFailure(f"cli config 4: negative radiance "
+                           f"{rec['uu_f64_min']} (f64)")
+    if rec["uu_rel_err_vs_f64"] > OLR_BAR:
+        raise SmokeFailure(f"cli config 4: f32 vs f64 "
+                           f"{rec['uu_rel_err_vs_f64']:.3g} > {OLR_BAR}")
+    if not rec["toa_mean_radiance"] > rec["toa_mean_radiance_no_aerosol"]:
+        raise SmokeFailure("cli config 4: aerosol did not raise the mean "
+                           "TOA radiance")
+    return rec
+
+
 KERNELS = {   # name: (wrapper module, wrapper, source, the TPU kernel,
               #        the CUDA kernel's __global__ name)
     "eig_n2_deltam": ("eig_n2", "eig_beam_deltam_scatter_n2",
@@ -615,6 +1034,11 @@ KERNELS = {   # name: (wrapper module, wrapper, source, the TPU kernel,
                         "blocktri_rt_streamed.cu",
                         "sbdart_tpu/pallas/blocktri.py:457",
                         "blocktri_rt_bwd_kernel"),
+    "radsrc": ("radsrc", "rad_source_lane", "radsrc.cu",
+               "sbdart_tpu/pallas/radsrc.py:61", "radsrc_kernel"),
+    "eig_n2_planar": ("eig_n2", "eig_beam_chain_n2", "eig_n2_planar.cu",
+                      "sbdart_tpu/pallas/eig.py:764",
+                      "eig_n2_planar_kernel"),
 }
 
 
@@ -650,7 +1074,10 @@ def main() -> int:
           "ptxas": ptxas})
 
     summary = phase_kernels(device, reps=20)
-    summary.update(phase_kernels_general(device, reps=20))
+    for part in (phase_kernels_general(device, reps=20),
+                 phase_kernels_radiance(device, reps=20),
+                 phase_kernels_bvp_n2(device, reps=10)):
+        merge(summary, part)
 
     wrappers = {
         k: getattr(importlib.import_module(f"sbdart_tpu_torch.kernels.{m}"), f)
@@ -664,9 +1091,24 @@ def main() -> int:
          ("eig_beam", "blocktri_rt_fwd", "blocktri_rt_bwd")),
         (lambda: phase_solve(device, reps=10, planck=True),
          ("eig_n2_scatter", "blocktri_rt_n2")),
+        (lambda: phase_solve(device, reps=10, nlyr=65),
+         ("eig_n2_deltam", "blocktri_rt")),
+        (lambda: phase_radiance(device, reps=10, nstr=4, nbc=4096,
+                                nlyr=NLYR),
+         ("eig_n2_planar", "blocktri_rt_n2", "radsrc")),
+        (lambda: phase_radiance(device, reps=10, nstr=16, nbc=NBC_RAD16,
+                                nlyr=NLYR16),
+         ("eig_beam", "blocktri_rt_fwd", "blocktri_rt_bwd", "radsrc")),
+        (lambda: phase_radiance(device, reps=5, nstr=16, nbc=NBC16,
+                                nlyr=NLYR16),
+         ("eig_beam", "blocktri_rt_fwd", "blocktri_rt_bwd", "radsrc")),
+        (lambda: phase_radiance(device, reps=10, nstr=8, nbc=512,
+                                nlyr=NLYR, planck=True, brdf=True),
+         ("eig_beam", "blocktri_rt", "radsrc")),
         (phase_cli, ("eig_n2_deltam", "blocktri_rt_n2")),
         (phase_cli_config2, ("eig_n2_scatter", "blocktri_rt_n2")),
         (phase_cli_config3, ("eig_beam", "blocktri_rt")),
+        (phase_cli_config4, ("eig_beam", "blocktri_rt", "radsrc")),
     ]
     launches = dict.fromkeys(KERNELS, 0)
     for phase, owned in owners:

@@ -26,8 +26,9 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("eig_n2_deltam.cu", "eig_n2_scatter.cu", "eig_beam.cu",
-           "blocktri_rt_n2.cu", "blocktri_rt.cu", "blocktri_rt_streamed.cu")
+SOURCES = ("eig_n2_deltam.cu", "eig_n2_scatter.cu", "eig_n2_planar.cu",
+           "eig_beam.cu", "blocktri_rt_n2.cu", "blocktri_rt.cu",
+           "blocktri_rt_streamed.cu", "radsrc.cu")
 HEADERS = ("eig_n2_chain.cuh", "solve_step.cuh")
 # IEEE sqrt/div/exp (no --use_fast_math) and no contracted multiply-adds:
 # the kernels round where their plain torch versions do.
@@ -113,6 +114,10 @@ def library() -> ctypes.CDLL:
     lib.sbdart_eig_n2_deltam.restype = _I
     lib.sbdart_eig_n2_scatter.argtypes = [_P] * 9 + [_I, _I, _P, _P]
     lib.sbdart_eig_n2_scatter.restype = _I
+    lib.sbdart_eig_n2_planar.argtypes = [_P] * 10 + [_I, _I, _P, _P]
+    lib.sbdart_eig_n2_planar.restype = _I
+    lib.sbdart_radsrc.argtypes = [_P] * 17 + [_I] * 4 + [_P, _P]
+    lib.sbdart_radsrc.restype = _I
     lib.sbdart_eig_beam.argtypes = [_P] * 10 + [_I, _I, _I, _P, _P]
     lib.sbdart_eig_beam.restype = _I
     lib.sbdart_blocktri_rt_n2.argtypes = [_P] * 8 + [_I, _I, _P]

@@ -1,8 +1,9 @@
-"""B5: fused SETMTX + SOLVE0 for general n (nstr 8/12/16, N = 4, 6, 8),
-block-Thomas over layers with the full W history.
+"""B5: fused SETMTX + SOLVE0 for general n (N = 2, 4, 6, 8), block-Thomas
+over layers with the full W history.
 
 Port of sbdart_tpu/pallas/blocktri.py:_rt_kernel (reached via
-block_thomas_rt for n >= 4).  The 2N x 2N blocks are assembled on the fly
+block_thomas_rt for n >= 4, and at n = 2 where its planar tile does not
+fit VMEM: see blocktri_rt_streamed.reference_route).  The 2N x 2N blocks are assembled on the fly
 from G+-, the per-mode transmissions ee and the Lambertian surface
 operator (blocktri.py:228-233):
 
@@ -121,9 +122,9 @@ def block_thomas_rt(gp, gm, ee, refl, rhs):
     from sbdart_tpu_torch.kernels import _build
 
     nlyr, n, _, b = gp.shape
-    if n not in (4, 6, 8):
-        raise ValueError(f"block_thomas_rt: the kernel takes N = 4, 6 or 8, "
-                         f"got {n}")
+    if n not in (2, 4, 6, 8):
+        raise ValueError(f"block_thomas_rt: the kernel takes N = 2, 4, 6 or "
+                         f"8, got {n}")
     want = {"gp": (nlyr, n, n, b), "gm": (nlyr, n, n, b), "ee": (nlyr, n, b),
             "refl": (n, n, b), "rhs": (nlyr, 2 * n, b)}
     for name, t in zip(want, (gp, gm, ee, refl, rhs)):

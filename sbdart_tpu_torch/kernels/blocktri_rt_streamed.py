@@ -1,11 +1,15 @@
 """B6: fused SETMTX + SOLVE0 for general n with the rank-N factor history
-(nstr 8/12/16, N = 4, 6, 8), as a forward kernel and a backward kernel.
+(N = 2, 4, 6, 8), as a forward kernel and a backward kernel, and the
+routing of every boundary-value solve.
 
 Port of sbdart_tpu/pallas/blocktri.py:_rt_fwd_chunk_kernel and
 _rt_bwd_chunk_kernel, which its block_thomas_rt runs instead of _rt_kernel
 (B5, kernels/blocktri_rt.py) when one 128-lane tile of the whole column
 would not fit the TPU's VMEM: at N = 8 from 42 layers on, at N = 6 from 71,
-at N = 4 from 147 (`reference_streams`).  The blocks are those of B5; the
+at N = 4 from 147, at N = 2 from 473 (`reference_streams`).  At N = 2 the
+reference first tries its planar kernel (B2, kernels/blocktri_n2.py), up
+to 51 layers (`reference_route`); `solve_bvp` runs the kernel the
+reference runs at each shape, and nothing else picks a BVP kernel.  The blocks are those of B5; the
 factor kept per layer is C_l = dt_l^-1[:, N:] (2N x N) instead of W_l
 (2N x 2N), since W_l = C_l ub_l with ub_l = -[gp_{l+1}, gm_{l+1} e_{l+1}]
 the bottom rows of the upper block (blocktri.py:235-249):
@@ -30,7 +34,15 @@ from __future__ import annotations
 
 import torch
 
-from sbdart_tpu_torch.kernels.blocktri_rt import solve_step
+from sbdart_tpu_torch.kernels.blocktri_n2 import (
+    block_thomas_rt_n2,
+    block_thomas_rt_n2_plain,
+)
+from sbdart_tpu_torch.kernels.blocktri_rt import (
+    block_thomas_rt,
+    block_thomas_rt_plain,
+    solve_step,
+)
 from sbdart_tpu_torch.ops.lane import lmatmul as _mm
 from sbdart_tpu_torch.ops.lane import lmatvec as _mv
 
@@ -47,6 +59,17 @@ def reference_streams(nlyr: int, n: int) -> bool:
     m = 2 * n
     floats = nlyr * (4 * n * n + 2 * n + 2 * 2 * m + m * m) + 2 * n * n
     return 4 * floats * _MIN_TILE > _VMEM_BUDGET
+
+
+def reference_route(nlyr: int, n: int) -> str:
+    """The kernel the reference's block_thomas_rt runs at (nlyr, n):
+    "planar" (B2) at n = 2 while the planar working set of one 128-lane
+    tile of 8 sublanes, 8 (60 nlyr + 8) floats a lane, fits the VMEM budget
+    (pallas/blocktri.py:941-945: up to 51 layers); else "streamed" (B6)
+    where `reference_streams`, else "full" (B5)."""
+    if n == 2 and 4 * 8 * (60 * nlyr + 8) * _MIN_TILE <= _VMEM_BUDGET:
+        return "planar"
+    return "streamed" if reference_streams(nlyr, n) else "full"
 
 
 def block_thomas_rt_fwd_plain(gp, gm, ee, refl, rhs):
@@ -102,8 +125,9 @@ def block_thomas_rt_streamed_plain(gp, gm, ee, refl, rhs):
 
 
 def _check_shapes(name, n, want, tensors):
-    if n not in (4, 6, 8):
-        raise ValueError(f"{name}: the kernel takes N = 4, 6 or 8, got {n}")
+    if n not in (2, 4, 6, 8):
+        raise ValueError(f"{name}: the kernel takes N = 2, 4, 6 or 8, "
+                         f"got {n}")
     for key, t in zip(want, tensors):
         if tuple(t.shape) != want[key]:
             raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
@@ -170,6 +194,19 @@ def block_thomas_rt_streamed(gp, gm, ee, refl, rhs):
     wrapper.  Returns xs [L, 2N, B]."""
     return block_thomas_rt_bwd(
         gp, gm, ee, *block_thomas_rt_fwd(gp, gm, ee, refl, rhs))
+
+
+def solve_bvp(gp, gm, ee, refl, rhs, *, kernels=True):
+    """The boundary-value solve through the kernel the reference runs at
+    this shape (`reference_route`): the kernel wrappers when `kernels`,
+    else their plain versions.  Returns xs [L, 2N, B]."""
+    route = reference_route(gp.shape[0], gp.shape[1])
+    solve = {
+        "planar": (block_thomas_rt_n2_plain, block_thomas_rt_n2),
+        "full": (block_thomas_rt_plain, block_thomas_rt),
+        "streamed": (block_thomas_rt_streamed_plain, block_thomas_rt_streamed),
+    }[route][bool(kernels)]
+    return solve(gp, gm, ee, refl, rhs)
 
 
 block_thomas_rt_fwd.launches = 0

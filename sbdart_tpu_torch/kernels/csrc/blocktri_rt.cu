@@ -1,6 +1,7 @@
-// Fused SETMTX + SOLVE0 for general n (nstr 8/12/16, N = 4, 6, 8;
+// Fused SETMTX + SOLVE0 for general n (N = 2, 4, 6, 8: nstr 4/8/12/16;
 // m = 2N <= 16): the boundary-value solve of one column, block-Thomas over
-// the layers, one thread per column.
+// the layers, one thread per column.  At N = 2 it runs where the
+// reference's n = 2 planar tile no longer fits VMEM (52 to 472 layers).
 //
 // Replaces the TPU kernel sbdart_tpu/pallas/blocktri.py:_rt_kernel (with
 // _solve_step).  Per layer l the 2N x 2N blocks are assembled on the fly
@@ -194,6 +195,9 @@ extern "C" int sbdart_blocktri_rt(
   if (nlyr <= 0 || ncol <= 0) return 0;
   cudaError_t err;
   switch (n) {
+    case 2:
+      err = launch<2>(gp, gm, ee, refl, rhs, ws, ys, xs, nlyr, ncol, stream);
+      break;
     case 4:
       err = launch<4>(gp, gm, ee, refl, rhs, ws, ys, xs, nlyr, ncol, stream);
       break;

@@ -1,6 +1,6 @@
 // Fused SETMTX + SOLVE0 for general n with the rank-N factor history
-// (N = 4, 6, 8; m = 2N <= 16): the boundary-value solve of one column as
-// two kernels, a forward elimination and a backward substitution, one
+// (N = 2, 4, 6, 8; m = 2N <= 16): the boundary-value solve of one column
+// as two kernels, a forward elimination and a backward substitution, one
 // thread per column each.
 //
 // Replaces the TPU kernels sbdart_tpu/pallas/blocktri.py:
@@ -247,6 +247,9 @@ extern "C" int sbdart_blocktri_rt_fwd(
   if (nlyr <= 0 || ncol <= 0) return 0;
   cudaError_t err;
   switch (n) {
+    case 2:
+      err = launch_fwd<2>(gp, gm, ee, refl, rhs, cs, ys, nlyr, ncol, stream);
+      break;
     case 4:
       err = launch_fwd<4>(gp, gm, ee, refl, rhs, cs, ys, nlyr, ncol, stream);
       break;
@@ -269,6 +272,9 @@ extern "C" int sbdart_blocktri_rt_bwd(
   if (nlyr <= 0 || ncol <= 0) return 0;
   cudaError_t err;
   switch (n) {
+    case 2:
+      err = launch_bwd<2>(gp, gm, ee, cs, ys, xs, nlyr, ncol, stream);
+      break;
     case 4:
       err = launch_bwd<4>(gp, gm, ee, cs, ys, xs, nlyr, ncol, stream);
       break;

@@ -1,13 +1,14 @@
-// The nstr=4 (n = 2) scattering build, beam right-hand side, closed-form
-// eigen chain and beam solve of one (layer, column), shared by the B1
-// (eig_n2_deltam.cu) and B3 (eig_n2_scatter.cu) kernels.
+// The nstr=4 (n = 2) closed-form eigen chain and beam solve of one lane
+// (`n2_chain`), shared by the B1 (eig_n2_deltam.cu), B3 (eig_n2_scatter.cu)
+// and B8 (eig_n2_planar.cu) kernels, and the scattering build and beam
+// right-hand side that B1 and B3 put in front of it (`n2_scatter_chain`).
 //
 // Mirrors sbdart_tpu/pallas/eig.py:792-832 and _n2_chain_planar (627):
 // C^pp / C^pm from the delta-M-scaled ssalb and moments, Lam_l(mu0), the
-// reduced beam RHS r1/r2, the trace-ridged 2x2 Cholesky, the half-angle
-// symmetric eigh with the `wa <= wb` select and no sort, the triangular
-// solve, G+-, and the partial-pivoted 2x2 UPBEAM elimination.  The
-// formulas and their operation order follow the plain torch version
+// reduced beam RHS r1/r2; then the trace-ridged 2x2 Cholesky, the
+// half-angle symmetric eigh with the `wa <= wb` select and no sort, the
+// triangular solve, G+-, and the partial-pivoted 2x2 UPBEAM elimination.
+// The formulas and their operation order follow the plain torch version
 // (sbdart_tpu_torch/kernels/eig_n2.py:_scatter_chain, _n2_chain) term by
 // term; with IEEE sqrtf / division and --fmad=false the kernels round
 // where the plain version does.
@@ -44,54 +45,14 @@ struct N2Out {
   float zm[2];
 };
 
-// ss, gl: delta-M-scaled ssalb and moments l = 0..3; mu0p: beam cosine;
-// scl: beam amplitude fbeam / (2 pi) (0 where there is no beam).
-__device__ __forceinline__ N2Out n2_scatter_chain(
-    const EigN2Consts& k, float ss, const float gl[4], float mu0p,
-    float scl) {
-  // ---- scattering matrices + beam right-hand side ----------------------
-  float c[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) c[q] = (0.5f * (2 * q + 1)) * ss * gl[q];
-  float cpp[4], cpm[4];
-#pragma unroll
-  for (int ij = 0; ij < 4; ++ij) {
-    float sp = k.cpp[ij][0] * c[0];
-    float sm = k.cpm[ij][0] * c[0];
-#pragma unroll
-    for (int q = 1; q < 4; ++q) {
-      sp = sp + k.cpp[ij][q] * c[q];
-      sm = sm + k.cpm[ij][q] * c[q];
-    }
-    cpp[ij] = sp;
-    cpm[ij] = sm;
-  }
-  const float y0[4] = {
-      1.0f, mu0p, 0.5f * (3.0f * mu0p * mu0p - 1.0f),
-      0.5f * mu0p * (5.0f * mu0p * mu0p - 3.0f)};
-  float prod[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) prod[q] = c[q] * (k.par[q] * y0[q]);
-  float x0p[2], x0m[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float sp = k.ylm[0][i] * prod[0];
-    float sm = k.ylmpar[0][i] * prod[0];
-#pragma unroll
-    for (int q = 1; q < 4; ++q) {
-      sp = sp + k.ylm[q][i] * prod[q];
-      sm = sm + k.ylmpar[q][i] * prod[q];
-    }
-    x0p[i] = sp * scl;
-    x0m[i] = sm * scl;
-  }
-  const float r1a = (x0p[0] + x0m[0]) * k.inv_mu[0];
-  const float r1b = (x0p[1] + x0m[1]) * k.inv_mu[1];
-  const float r2a = (x0p[0] - x0m[0]) * k.inv_mu[0];
-  const float r2b = (x0p[1] - x0m[1]) * k.inv_mu[1];
-
-  // ---- closed-form n = 2 chain (_n2_chain_planar) -----------------------
+// The closed-form n = 2 chain (_n2_chain_planar) on prebuilt C^pp / C^pm
+// entries (11, 12, 21, 22), the reduced beam RHS r = (r1_1, r1_2, r2_1,
+// r2_2) and the beam cosine mu0p.
+__device__ __forceinline__ N2Out n2_chain(
+    const EigN2Consts& k, const float cpp[4], const float cpm[4],
+    const float r[4], float mu0p) {
   const float imu1 = k.inv_mu[0], imu2 = k.inv_mu[1];
+  const float r1a = r[0], r1b = r[1], r2a = r[2], r2b = r[3];
   const float w1 = k.w[0], w2 = k.w[1];
   const float amb11 = (1.0f - (cpp[0] + cpm[0]) * w1) * imu1;
   const float amb12 = (-(cpp[1] + cpm[1]) * w2) * imu1;
@@ -200,6 +161,54 @@ __device__ __forceinline__ N2Out n2_scatter_chain(
   o.zm[0] = 0.5f * (s1 - d1);
   o.zm[1] = 0.5f * (s2 - d2);
   return o;
+}
+
+// ss, gl: delta-M-scaled ssalb and moments l = 0..3; mu0p: beam cosine;
+// scl: beam amplitude fbeam / (2 pi) (0 where there is no beam).
+__device__ __forceinline__ N2Out n2_scatter_chain(
+    const EigN2Consts& k, float ss, const float gl[4], float mu0p,
+    float scl) {
+  // ---- scattering matrices + beam right-hand side ----------------------
+  float c[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) c[q] = (0.5f * (2 * q + 1)) * ss * gl[q];
+  float cpp[4], cpm[4];
+#pragma unroll
+  for (int ij = 0; ij < 4; ++ij) {
+    float sp = k.cpp[ij][0] * c[0];
+    float sm = k.cpm[ij][0] * c[0];
+#pragma unroll
+    for (int q = 1; q < 4; ++q) {
+      sp = sp + k.cpp[ij][q] * c[q];
+      sm = sm + k.cpm[ij][q] * c[q];
+    }
+    cpp[ij] = sp;
+    cpm[ij] = sm;
+  }
+  const float y0[4] = {
+      1.0f, mu0p, 0.5f * (3.0f * mu0p * mu0p - 1.0f),
+      0.5f * mu0p * (5.0f * mu0p * mu0p - 3.0f)};
+  float prod[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) prod[q] = c[q] * (k.par[q] * y0[q]);
+  float x0p[2], x0m[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float sp = k.ylm[0][i] * prod[0];
+    float sm = k.ylmpar[0][i] * prod[0];
+#pragma unroll
+    for (int q = 1; q < 4; ++q) {
+      sp = sp + k.ylm[q][i] * prod[q];
+      sm = sm + k.ylmpar[q][i] * prod[q];
+    }
+    x0p[i] = sp * scl;
+    x0m[i] = sm * scl;
+  }
+  const float r[4] = {(x0p[0] + x0m[0]) * k.inv_mu[0],
+                      (x0p[1] + x0m[1]) * k.inv_mu[1],
+                      (x0p[0] - x0m[0]) * k.inv_mu[0],
+                      (x0p[1] - x0m[1]) * k.inv_mu[1]};
+  return n2_chain(k, cpp, cpm, r, mu0p);
 }
 
 // Store one (layer, column)'s chain outputs in the column-minor layout

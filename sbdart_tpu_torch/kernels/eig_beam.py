@@ -14,6 +14,9 @@ solved by shrinking implicit-pivot elimination (kernels/blocktri_rt.py:
 solve_step).  `eig_beam_chain` launches the CUDA kernel csrc/eig_beam.cu
 on CUDA tensors and runs `eig_beam_chain_plain` on CPU tensors.
 
+`eig_beam_chain_lane` is the flat entry of the radiance path
+(pallas/eig.py:473-501), a one-layer view of the same kernel.
+
 Layout is layer-leading and column-minor: cppl/cpml [L, N, N, B], r1/r2
 [L, N, B], mu0 [1, B]; outputs kk [L, N, B], gp/gm [L, N, N, B], zp/zm
 [L, N, B].  Eigenpairs come out in the Jacobi's own order (no sort):
@@ -33,6 +36,10 @@ import numpy as np
 import torch
 
 from sbdart_tpu_torch.kernels.blocktri_rt import solve_step
+from sbdart_tpu_torch.kernels.eig_n2 import (
+    eig_beam_chain_n2,
+    eig_beam_chain_n2_plain,
+)
 from sbdart_tpu_torch.ops.lane import lmatmul as _mm
 from sbdart_tpu_torch.ops.lane import lmatvec as _mv
 
@@ -260,6 +267,26 @@ def eig_beam_chain(cppl, cpml, r1, r2, mu0, mu, w):
     eig_beam_chain.launches += 1
     _build.check(code, "eig_beam_chain")
     return outs
+
+
+def eig_beam_chain_lane(cppl, cpml, r1, r2, mu0, tab, *, kernels=True,
+                        sweeps=SWEEPS_F32):
+    """The eigen chain + beam solve on a flat lane axis, as
+    pallas/eig.py:eig_beam_chain_lane_fused: cppl/cpml [N, N, B], r1/r2
+    [N, B], mu0 [1, B] (one beam cosine per lane) -> kk [N, B], gp/gm
+    [N, N, B], zp/zm [N, B].  It runs the layered kernels on a one-layer
+    view, as the reference does: B8 (kernels/eig_n2.py) at N = 2, B4 at
+    N >= 4; the kernel wrappers when `kernels`, else the plain versions
+    (B4's with `sweeps` Jacobi sweeps).  `tab` is the AngularTables."""
+    ops = (cppl[None], cpml[None], r1[None], r2[None], mu0.reshape(1, -1))
+    if cppl.shape[0] == 2:
+        front = eig_beam_chain_n2 if kernels else eig_beam_chain_n2_plain
+        out = front(*ops, tab)
+    elif kernels:
+        out = eig_beam_chain(*ops, tab.mu, tab.w)
+    else:
+        out = eig_beam_chain_plain(*ops, tab.mu, tab.w, sweeps=sweeps)
+    return tuple(x[0] for x in out)
 
 
 eig_beam_chain.launches = 0

@@ -1,5 +1,6 @@
 """B1: the fused nstr=4 front end (delta-M + scattering build + beam RHS +
-closed-form n = 2 eigen chain + beam solve + transmissions).
+closed-form n = 2 eigen chain + beam solve + transmissions), and B8: the
+same chain and beam solve on prebuilt scattering matrices.
 
 Port of sbdart_tpu/pallas/eig.py:_n2_deltam_scatter_kernel (reached via
 eig_beam_deltam_scatter_n2_layered).  `eig_beam_deltam_scatter_n2` launches
@@ -12,6 +13,11 @@ Layout is column-minor: dtau/ssalb [L, B], pmom [L, 5, B], scale/mu0
 dtau* [L, B], ee [L, 2, B].  Eigenpairs come out in the chain's own
 `wa <= wb` order (no sort): compare per-mode tensors only against the
 same route.
+
+B8 is the port of sbdart_tpu/pallas/eig.py:_n2_planar_kernel, which the
+radiance path runs at nstr=4 on every (mode, layer, column) lane
+(`eig_beam_chain_n2`, csrc/eig_n2_planar.cu).  B1, B3 and B8 share one
+chain: `_n2_chain` here, `n2_chain` in csrc/eig_n2_chain.cuh.
 """
 
 from __future__ import annotations
@@ -252,15 +258,73 @@ def _scatter_chain(c, ss, gl, scl, mu0p):
     r2a = (x0p[0] - x0m[0]) * imu1
     r2b = (x0p[1] - x0m[1]) * imu2
 
-    (kk1, kk2), gp, gm, zp, zm = _n2_chain(
-        c, cpp, cpm, r1a, r1b, r2a, r2b, mu0p
+    return _stack(nlyr, b, _n2_chain(c, cpp, cpm, r1a, r1b, r2a, r2b, mu0p))
+
+
+def _stack(nlyr, b, chain):
+    """_n2_chain's per-entry planes [L, B] -> kk [L, 2, B], gp/gm
+    [L, 2, 2, B], zp/zm [L, 2, B]."""
+    kk, gp, gm, zp, zm = chain
+    return (torch.stack(kk, dim=1),
+            torch.stack(gp, dim=1).reshape(nlyr, 2, 2, b),
+            torch.stack(gm, dim=1).reshape(nlyr, 2, 2, b),
+            torch.stack(zp, dim=1), torch.stack(zm, dim=1))
+
+
+_ENTRIES = ((0, 0), (0, 1), (1, 0), (1, 1))
+
+
+def eig_beam_chain_n2_plain(cppl, cpml, r1, r2, mu0, tab):
+    """Plain torch version of the B8 kernel, any device and float dtype:
+    the n = 2 chain (`_n2_chain`) on prebuilt C^pp / C^pm."""
+    nlyr, _, _, b = cppl.shape
+    cpp = [cppl[:, i, j] for i, j in _ENTRIES]
+    cpm = [cpml[:, i, j] for i, j in _ENTRIES]
+    return _stack(nlyr, b, _n2_chain(
+        _consts(tab, cppl.dtype), cpp, cpm, r1[:, 0], r1[:, 1], r2[:, 0],
+        r2[:, 1], mu0.reshape(1, b)))
+
+
+def eig_beam_chain_n2(cppl, cpml, r1, r2, mu0, tab):
+    """B8: the n = 2 chain + beam solve on prebuilt C^pp / C^pm [L, 2, 2,
+    B], r1/r2 [L, 2, B] and mu0 [1, B] (shared by the layers), as
+    pallas/eig.py:_n2_planar_kernel.  The CUDA kernel csrc/eig_n2_planar.cu
+    on CUDA tensors (float32 only), the plain torch version on CPU
+    tensors.  Returns kk [L, 2, B], gp/gm [L, 2, 2, B], zp/zm [L, 2, B]."""
+    if cppl.device.type == "cpu":
+        return eig_beam_chain_n2_plain(cppl, cpml, r1, r2, mu0, tab)
+    from sbdart_tpu_torch.kernels import _build
+
+    nlyr, _, _, b = cppl.shape
+    want = {"cppl": (nlyr, 2, 2, b), "cpml": (nlyr, 2, 2, b),
+            "r1": (nlyr, 2, b), "r2": (nlyr, 2, b)}
+    for name, t in zip(want, (cppl, cpml, r1, r2)):
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"eig_beam_chain_n2: {name} has shape "
+                             f"{tuple(t.shape)}, expected {want[name]}")
+    if mu0.numel() != b:
+        raise ValueError("eig_beam_chain_n2: mu0 must be [1, B]")
+    ins = [t.contiguous() for t in (cppl, cpml, r1, r2, mu0)]
+    _build.require_cuda_f32("eig_beam_chain_n2", *ins)
+    consts = _kernel_consts(
+        tuple(tab.mu), tuple(tab.w), tuple(np.ravel(tab.ylm[0])),
+        tuple(tab.parity[0]),
     )
-    kk = torch.stack([kk1, kk2], dim=1)
-    gp = torch.stack(gp, dim=1).reshape(nlyr, 2, 2, b)
-    gm = torch.stack(gm, dim=1).reshape(nlyr, 2, 2, b)
-    zp = torch.stack(zp, dim=1)
-    zm = torch.stack(zm, dim=1)
-    return kk, gp, gm, zp, zm
+    new = dict(device=cppl.device, dtype=torch.float32)
+    outs = (torch.empty((nlyr, 2, b), **new),
+            torch.empty((nlyr, 2, 2, b), **new),
+            torch.empty((nlyr, 2, 2, b), **new),
+            torch.empty((nlyr, 2, b), **new), torch.empty((nlyr, 2, b), **new))
+    lib = _build.library()
+    with torch.cuda.device(cppl.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.sbdart_eig_n2_planar(
+            *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
+            nlyr, b, consts.ctypes.data, stream,
+        )
+    eig_beam_chain_n2.launches += 1
+    _build.check(code, "eig_beam_chain_n2")
+    return outs
 
 
 def eig_beam_deltam_scatter_n2(dtau, ssalb, pmom5, scale, mu0, tab,
@@ -309,3 +373,4 @@ def eig_beam_deltam_scatter_n2(dtau, ssalb, pmom5, scale, mu0, tab,
 
 
 eig_beam_deltam_scatter_n2.launches = 0
+eig_beam_chain_n2.launches = 0

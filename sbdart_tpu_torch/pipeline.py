@@ -1,5 +1,6 @@
 """The spectral pipeline: SBDART's outer wavelength x k-distribution loop
-(torch port of sbdart_tpu/pipeline.py).
+(torch port of sbdart_tpu/pipeline.py), fluxes and, for iout 5, 6 and
+20-23, radiances at the user angles.
 
 The full spectral grid is built up front (optics.build_optical_deck) and
 moved to the device once; it is then solved in fixed-size wavelength
@@ -105,6 +106,20 @@ def thermal_mask(cfg: Config, wl: np.ndarray) -> np.ndarray:
     return wl > THERMAL_WL_UM
 
 
+def user_angles(cfg: Config):
+    """(umu [nzen], phi [nphi]) of a radiance request (iout 5, 6, 20-23
+    with nzen > 0), else (None, None), as the reference's pipeline makes
+    them (pipeline.py:211-226): nphi defaults to 1, negative azimuths
+    read as 0, and |umu| is clamped to >= 1e-4."""
+    nzen = int(cfg.nzen)
+    if cfg.iout not in (5, 6, 20, 21, 22, 23) or nzen <= 0:
+        return None, None
+    nphi = int(cfg.nphi) or 1
+    phi = np.array([p if p >= 0 else 0.0 for p in cfg.phi[:nphi]])
+    umu = np.cos(np.deg2rad(np.array(cfg.uzen[:nzen], np.float64)))
+    return np.where(np.abs(umu) < 1e-4, 1e-4, umu), phi
+
+
 def run_albtrn(cfg: Config, *args, **kw):
     """The ibcnd=1 albedo/transmissivity mode is not ported yet."""
     raise NotImplementedError(
@@ -138,11 +153,12 @@ def run_pipeline(
 
     wl = spectral_grid(cfg)
     nwl = len(wl)
-    nzen = int(cfg.nzen)
-    want_rad = cfg.iout in (5, 6, 20, 21, 22, 23) and nzen > 0
+    umu, phi = user_angles(cfg)
+    want_rad = umu is not None
     thermal = thermal_mask(cfg, wl)
     any_thermal = bool(thermal.any())
-    why = unsupported(nstr=cfg.nstr, onlyfl=not want_rad, brdf=None)
+    why = unsupported(nstr=cfg.nstr, onlyfl=not want_rad, brdf=None,
+                      umu=umu, phi=phi)
     if why is not None:
         raise NotImplementedError(
             f"sbdart_tpu_torch.run_pipeline does not port {why} yet"
@@ -155,7 +171,7 @@ def run_pipeline(
         usrcld = load_usrcld_dat("usrcld.dat", profile.nlyr)
     nlyr = profile.nlyr
 
-    nmom = cfg.nstr + 1
+    nmom = max(cfg.nstr + 1, 65) if want_rad else cfg.nstr + 1
     deck = build_optical_deck(profile, cfg, wl, nmom, usrcld, aer_table)
 
     # solar + surface spectra
@@ -191,6 +207,7 @@ def run_pipeline(
     fup = np.zeros((nwl, nlev))
     dfdt = np.zeros((nwl, nlev))
     uavg = np.zeros((nwl, nlev))
+    uu = np.zeros((nwl, nlev, len(umu), len(phi))) if want_rad else None
 
     nchunk = -(-nwl // chunk)
     for ci in range(nchunk):
@@ -229,7 +246,9 @@ def run_pipeline(
             fisot=cfg.fisot,
             albedo=alb_d[idx_d][:, None],
             deltam=cfg.deltam,
-            onlyfl=True,
+            onlyfl=not want_rad,
+            umu=None if umu is None else np.round(umu, 10),
+            phi=None if phi is None else np.round(phi, 10),
             corint=cfg.corint,
             dtype=dtype,
             device=device,
@@ -250,10 +269,14 @@ def run_pipeline(
         acc(fup, out.flup)
         acc(dfdt, out.dfdt)
         acc(uavg, out.uavg)
+        if want_rad:
+            v = out.uu.cpu().numpy()       # [chunk, nk, nlev, numu, nphi]
+            v = np.einsum("ck,ckvup->cvup", wk, v) * conv[..., None, None]
+            uu[s:e] = v[: e - s, :nlev]
 
     return SpectralResult(
         cfg=cfg, profile=profile, wl=wl, dwl=_trapz_weights(wl),
         fbeam_toa=fbeam * filt, filt=filt, csza=csza,
         fdir=fdir, fdn=fdn, fup=fup, dfdt=dfdt, uavg=uavg,
-        uu=None, umu=None, phi=None,
+        uu=uu, umu=umu, phi=phi,
     )

@@ -1,13 +1,20 @@
 """solve_rte — the monochromatic discrete-ordinates solve (torch port of
 sbdart_tpu/solver/disort.py).
 
-Same signature as the reference, plus `device`.  The port runs flux-only
-(onlyfl) solves on a Lambertian surface, with or without the thermal
-source, for every nstr whose N = nstr/2 is even and at most 8 (nstr 4, 8,
-12, 16: the reference's `lane_ok` test, disort.py:118-123), through the
-lane-resident flux path (solver/fluxlane.py) and its CUDA kernels.  Every
-other combination raises NotImplementedError naming the ROADMAP slice
-that brings it.
+Same signature as the reference, plus `device`.  The port runs, for every
+nstr whose N = nstr/2 is even and at most 8 (nstr 4, 8, 12, 16), with or
+without the thermal source:
+
+  * flux-only (onlyfl) solves on a Lambertian surface, through the
+    lane-resident flux path (solver/fluxlane.py; the reference's
+    `lane_ok`, disort.py:118-123);
+  * radiance solves (onlyfl=False with umu and phi) on a Lambertian or
+    BRDF surface, through the lane-resident radiance path
+    (solver/radlane.py; the reference's `rad_lane_ok`, disort.py:154-158).
+
+Every other combination (odd N or N > 8, flux-only BRDF, radiances
+without user angles) runs on the reference's generic path and raises
+NotImplementedError naming the ROADMAP slice that brings it.
 
 Routes (`eig_method`):
   * "auto": float32 runs the kernel wrappers, which launch the CUDA
@@ -42,20 +49,23 @@ class RteOutputs(NamedTuple):
 EIG_METHODS = ("auto", "plain")
 
 
-def unsupported(*, nstr: int, onlyfl: bool, brdf) -> str | None:
+def unsupported(*, nstr: int, onlyfl: bool, brdf, umu=None,
+                phi=None) -> str | None:
     """The ROADMAP slice that a request needs, or None when the port
-    serves it (flux-only, Lambertian, N = nstr/2 even and <= 8, with or
+    serves it (N = nstr/2 even and <= 8; flux-only on a Lambertian
+    surface, or radiances at given umu and phi on either surface; with or
     without the thermal source)."""
-    if not onlyfl:
-        return ("radiances (onlyfl=False): ROADMAP Queue A item 9, "
-                "the radiance slice")
-    if brdf is not None:
-        return ("BRDF surface: ROADMAP Queue A item 9, the radiance/BRDF "
-                "slice")
     n = nstr // 2
     if n % 2 or n > 8 or nstr % 2:
         return (f"nstr={nstr} (N = nstr/2 odd or above 8): ROADMAP Queue A "
                 "item 7, the generic path")
+    if onlyfl and brdf is not None:
+        return ("a flux-only solve on a BRDF surface: ROADMAP Queue A "
+                "item 7, the generic path")
+    if not onlyfl and (umu is None or phi is None):
+        return ("radiances (onlyfl=False) without user angles umu and phi: "
+                "ROADMAP Queue A item 7, the generic path (the radiance "
+                "slice ports the lane path)")
     return None
 
 
@@ -88,7 +98,7 @@ def solve_rte(
     bvp_method: str = "auto",
     device=None,
 ) -> RteOutputs:
-    why = unsupported(nstr=nstr, onlyfl=onlyfl, brdf=brdf)
+    why = unsupported(nstr=nstr, onlyfl=onlyfl, brdf=brdf, umu=umu, phi=phi)
     if why is not None:
         raise NotImplementedError(
             f"sbdart_tpu_torch.solve_rte does not port {why} yet"
@@ -110,11 +120,12 @@ def solve_rte(
 
     dtauc, ssalb_in, pmom = t(dtauc), t(ssalb), t(pmom)
     nlyr = dtauc.shape[-1]
-    fbeam, umu0, fisot, albedo = t(fbeam), t(umu0), t(fisot), t(albedo)
+    fbeam, umu0, phi0, fisot, albedo = (
+        t(x) for x in (fbeam, umu0, phi0, fisot, albedo))
     batch = torch.broadcast_shapes(dtauc.shape[:-1], fbeam.shape,
                                    albedo.shape)
-    fbeam, umu0, fisot, albedo = (
-        x.expand(batch) for x in (fbeam, umu0, fisot, albedo)
+    fbeam, umu0, phi0, fisot, albedo = (
+        x.expand(batch) for x in (fbeam, umu0, phi0, fisot, albedo)
     )
     dtauc = dtauc.expand(batch + (nlyr,))
     ssalb_in = ssalb_in.expand(batch + (nlyr,))
@@ -132,8 +143,18 @@ def solve_rte(
                           *(t(x).expand(batch)
                             for x in (wvnlo, wvnhi, btemp, ttemp, temis)))
     kernels = eig_method == "auto" and dtype == torch.float32
+    sweeps = SWEEPS_F32 if dtype == torch.float32 else SWEEPS_F64
+    if not onlyfl:
+        from sbdart_tpu_torch.solver.radlane import solve_rte_radiance_lane
+
+        return solve_rte_radiance_lane(
+            dtauc, ssalb_in, pmom, nstr=nstr, fbeam=fbeam, umu0=umu0,
+            phi0=phi0, fisot=fisot, albedo=albedo, deltam=deltam, umu=umu,
+            phi=phi, corint=corint, planck=pk, brdf=brdf, kernels=kernels,
+            sweeps=sweeps,
+        )
     return solve_rte_flux_lane(
         dtauc, ssalb_in, pmom, fbeam=fbeam, umu0=umu0, fisot=fisot,
         albedo=albedo, deltam=deltam, nstr=nstr, planck=pk, kernels=kernels,
-        sweeps=SWEEPS_F32 if dtype == torch.float32 else SWEEPS_F64,
+        sweeps=sweeps,
     )

@@ -12,9 +12,11 @@ layout [L, *, B].  The front end emits every per-layer quantity:
   * nstr 8/12/16: delta-M, the scattering matrices and beam right-hand
     side as einsums, then the B4 kernel (kernels/eig_beam.py).
 
-The boundary-value problem goes to B2 (kernels/blocktri_n2.py) at N = 2;
-at N >= 4 to B6 (kernels/blocktri_rt_streamed.py) where the reference
-streams its solve, which is at N = 8 from 42 layers on, and to B5
+The boundary-value problem goes to the kernel the reference runs at each
+shape (kernels/blocktri_rt_streamed.py:solve_bvp): B2
+(kernels/blocktri_n2.py) at N = 2 up to 51 layers, B6
+(kernels/blocktri_rt_streamed.py) where the reference streams its solve
+(at N = 8 from 42 layers on, at N = 2 from 473), B5
 (kernels/blocktri_rt.py) elsewhere.  Plain torch glue does the
 rest: tau cumsums, beam exponentials, the thermal particular solution,
 the particular solution at layer bounds, the surface and top emission,
@@ -35,19 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from sbdart_tpu_torch.convert import tables_to_torch
-from sbdart_tpu_torch.kernels.blocktri_n2 import (
-    block_thomas_rt_n2,
-    block_thomas_rt_n2_plain,
-)
-from sbdart_tpu_torch.kernels.blocktri_rt import (
-    block_thomas_rt,
-    block_thomas_rt_plain,
-)
-from sbdart_tpu_torch.kernels.blocktri_rt_streamed import (
-    block_thomas_rt_streamed,
-    block_thomas_rt_streamed_plain,
-    reference_streams,
-)
+from sbdart_tpu_torch.kernels.blocktri_rt_streamed import solve_bvp
 from sbdart_tpu_torch.kernels.eig_beam import (
     SWEEPS_F32,
     eig_beam_chain,
@@ -333,14 +323,7 @@ def solve_rte_flux_lane(dtauc, ssalb_in, pmom, *, fbeam, umu0, fisot,
     sysm = bvp_system(fe, fbeam=fbeam, fisot=fisot, albedo=albedo,
                       planck=planck)
     n = nstr // 2
-    if n == 2:
-        solve = block_thomas_rt_n2 if kernels else block_thomas_rt_n2_plain
-    elif reference_streams(nlyr, n):
-        solve = (block_thomas_rt_streamed if kernels
-                 else block_thomas_rt_streamed_plain)
-    else:
-        solve = block_thomas_rt if kernels else block_thomas_rt_plain
-    xs = solve(fe.gp, fe.gm, fe.ee, sysm.refl, sysm.rhs)
+    xs = solve_bvp(fe.gp, fe.gm, fe.ee, sysm.refl, sysm.rhs, kernels=kernels)
     a = xs[:, :n]                                        # [L, N, Bc]
     b = xs[:, n:]
 

@@ -2,9 +2,11 @@
 history): the port's plain torch versions against the JAX package in
 interpret mode, B5 against block_thomas_rt at n = 4, 6 and 8 with layer
 counts small enough that the reference takes its whole-column kernel
-(_rt_kernel), B6 against the reference's streamed kernels
-(_block_thomas_rt_streamed) with several layer chunks, both against a dense
-float64 solve.  The port picks B6 exactly where the reference streams.
+(_rt_kernel), and at n = 2 with the reference's planar entry declined (as
+it declines it from 52 layers on), B6 against the reference's streamed
+kernels (_block_thomas_rt_streamed) with several layer chunks, at n = 2
+too, both against a dense float64 solve.  The port picks B2, B5 and B6
+exactly where the reference does (`reference_route`).
 
 Inputs are the conditioned problems of tests/test_pallas_kernels.py
 (_rt_problem).  Kernel-to-kernel bar: the reference's interpret bar
@@ -23,6 +25,8 @@ import pytest
 import torch
 from test_torch_blocktri_n2 import dense_solve, rt_problem
 
+from sbdart_tpu_torch.kernels.blocktri_n2 import block_thomas_rt_n2_plain
+
 import sbdart_tpu.pallas.blocktri as ref_blocktri
 from sbdart_tpu.pallas.blocktri import _solve_step as ref_solve_step
 from sbdart_tpu.pallas.blocktri import block_thomas_rt as ref_block_thomas_rt
@@ -37,7 +41,9 @@ from sbdart_tpu_torch.kernels.blocktri_rt_streamed import (
     block_thomas_rt_fwd_plain,
     block_thomas_rt_streamed,
     block_thomas_rt_streamed_plain,
+    reference_route,
     reference_streams,
+    solve_bvp,
 )
 
 
@@ -55,7 +61,22 @@ def test_blocktri_rt_plain_matches_pallas_interpret(nlyr, n, b, coupling):
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("nlyr,n,b", [(7, 4, 12), (4, 8, 6), (1, 6, 5)])
+def test_blocktri_rt_plain_matches_pallas_interpret_n2(monkeypatch):
+    """B5 at N = 2 against the reference's _rt_kernel, which its
+    block_thomas_rt runs at n = 2 when the planar entry returns None."""
+    monkeypatch.setattr(ref_blocktri, "_block_thomas_rt_planar_n2",
+                        lambda *a, **k: None)
+    prob = [x.astype(np.float32)
+            for x in rt_problem(6, 2, 130, coupling=0.4)]
+    ref = np.asarray(ref_block_thomas_rt(*(jnp.asarray(x) for x in prob),
+                                         interpret=True))
+    got = block_thomas_rt_plain(*(torch.from_numpy(x) for x in prob))
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("nlyr,n,b", [(7, 4, 12), (4, 8, 6), (1, 6, 5),
+                                      (9, 2, 7)])
 def test_blocktri_rt_plain_solves_assembled_system_f64(nlyr, n, b):
     """The elimination solves the SETMTX system: float64 against a dense
     LAPACK solve, to roundoff (bar 1e-11 of max |x|)."""
@@ -120,7 +141,7 @@ def test_blocktri_rt_wrapper_takes_plain_version_on_cpu():
 
 @pytest.mark.parametrize("nlyr,n,b,coupling,chunk", [
     (5, 4, 130, 0.4, 2), (9, 6, 20, 0.4, 4), (6, 6, 40, 0.3, 6),
-    (7, 8, 16, 0.15, 3),
+    (7, 8, 16, 0.15, 3), (7, 2, 130, 0.4, 3),
 ])
 def test_blocktri_rt_streamed_plain_matches_pallas_interpret(
         nlyr, n, b, coupling, chunk):
@@ -137,7 +158,7 @@ def test_blocktri_rt_streamed_plain_matches_pallas_interpret(
 
 
 @pytest.mark.parametrize("nlyr,n,b", [(7, 4, 12), (4, 8, 6), (5, 6, 5),
-                                      (1, 4, 3)])
+                                      (1, 4, 3), (6, 2, 9)])
 def test_blocktri_rt_streamed_plain_solves_assembled_system_f64(nlyr, n, b):
     prob = rt_problem(nlyr, n, b, coupling=0.4, seed=3)
     want = dense_solve(*prob)
@@ -189,6 +210,55 @@ def test_streams_where_the_reference_streams(monkeypatch, n, first):
                        spec((n, n, 3), f32), spec((nlyr, 2 * n, 3), f32))
         assert bool(taken) == reference_streams(nlyr, n), (n, nlyr)
         assert reference_streams(nlyr, n) == (nlyr >= first)
+
+
+def test_routes_where_the_reference_routes_at_n2(monkeypatch):
+    """reference_route at n = 2 against the reference's own choice, traced
+    abstractly with its planar and streamed entries recorded: the planar
+    kernel (B2) up to 51 layers, _rt_kernel (B5) from 52 to 472, the
+    streamed kernels (B6) from 473."""
+    taken = []
+    planar = ref_blocktri._block_thomas_rt_planar_n2
+
+    def record_planar(*a, **k):
+        xs = planar(*a, **k)
+        taken.append("planar" if xs is not None else "declined")
+        return xs
+
+    def record_streamed(gp, gm, ee, refl, rhs, **_):
+        taken.append("streamed")
+        return jnp.zeros(rhs.shape, rhs.dtype)
+
+    monkeypatch.setattr(ref_blocktri, "_block_thomas_rt_planar_n2",
+                        record_planar)
+    monkeypatch.setattr(ref_blocktri, "_block_thomas_rt_streamed",
+                        record_streamed)
+    route = functools.partial(ref_block_thomas_rt.__wrapped__,
+                              interpret=True)
+    spec = jax.ShapeDtypeStruct
+    f32 = jnp.float32
+    want = {1: "planar", 51: "planar", 52: "full", 472: "full",
+            473: "streamed"}
+    for nlyr, name in want.items():
+        taken.clear()
+        jax.eval_shape(route, spec((nlyr, 2, 2, 3), f32),
+                       spec((nlyr, 2, 2, 3), f32), spec((nlyr, 2, 3), f32),
+                       spec((2, 2, 3), f32), spec((nlyr, 4, 3), f32))
+        seen = "full" if taken == ["declined"] else taken[-1]
+        assert seen == name == reference_route(nlyr, 2), (nlyr, taken)
+
+
+@pytest.mark.parametrize("n,nlyr", [(2, 33), (2, 52), (2, 473), (8, 41),
+                                    (8, 42)])
+def test_solve_bvp_runs_the_routed_kernel(n, nlyr):
+    """solve_bvp gives the routed plain version's result bit for bit."""
+    prob = [torch.from_numpy(x.astype(np.float32))
+            for x in rt_problem(nlyr, n, 3, coupling=0.4)]
+    plain = {"planar": block_thomas_rt_n2_plain, "full": block_thomas_rt_plain,
+             "streamed": block_thomas_rt_streamed_plain}
+    want = plain[reference_route(nlyr, n)](*prob)
+    assert torch.equal(solve_bvp(*prob, kernels=False), want)
+    assert torch.equal(solve_bvp(*prob), want)
 
 
 def test_blocktri_rt_streamed_wrappers_take_plain_versions_on_cpu():

@@ -8,8 +8,10 @@ there is no JAX, so the repo conftest is left out):
 Bar: the reference's compiled-kernel bar, rtol 1e-4 / atol 1e-5
 (tests/test_pallas_kernels.py:142), at the main path's shapes (B1/B2/B3:
 33 layers x 49152 columns; B4/B5: 33 layers x 6144 columns at N = 4, 6
-and 8; B6: 65 layers x 6144 columns at N = 4, 6 and 8) and an unaligned
-130.  The kernels are built with --fmad=false and
+and 8; B6: 65 layers x 6144 columns at N = 4, 6 and 8; B5/B6 at N = 2:
+65 layers x 49152 columns; B7 on the radiance path's operands at nstr 16
+(65 layers x 256 columns), 12, 8 and 4; B8 at 4 modes x 33 layers x 4096
+columns; B4 on the flat radiance lane axis) and an unaligned 130.  The kernels are built with --fmad=false and
 follow their plain versions' operation order, so they agree to the last
 bit on the H100 (B1/B2 measured max |error| 0.0, NVIDIA H100 80GB HBM3 at
 700 W).
@@ -147,6 +149,118 @@ def test_blocktri_rt_streamed_kernels_match_plain(cuda_device, nstr, ncol):
     _assert_close(xs, block_thomas_rt_bwd_plain(*ops[:3], cs_p, ys_p), "xs")
 
 
+def _radiance(nstr, nlyr, nbc, device):
+    import chip_smoke
+
+    return chip_smoke.radiance_kernel_operands(
+        *chip_smoke.radiance_problem(nbc, nlyr, device, nstr=nstr))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ncol", [49152, 130])
+def test_bvp_kernels_at_n2_match_plain(cuda_device, ncol):
+    """B5 and B6 at N = 2 (nstr=4 from 52 layers on), 65 layers."""
+    import chip_smoke
+    from sbdart_tpu_torch.kernels.blocktri_rt import (
+        block_thomas_rt, block_thomas_rt_plain)
+    from sbdart_tpu_torch.kernels.blocktri_rt_streamed import (
+        block_thomas_rt_bwd, block_thomas_rt_bwd_plain, block_thomas_rt_fwd,
+        block_thomas_rt_fwd_plain)
+
+    prob = chip_smoke.flux_problem(ncol, 1, 65, cuda_device)
+    *_, ops = chip_smoke.kernel_operands(prob)
+    before = block_thomas_rt.launches
+    got = block_thomas_rt(*ops)
+    cs, ys = block_thomas_rt_fwd(*ops)
+    cs_p, ys_p = block_thomas_rt_fwd_plain(*ops)
+    xs = block_thomas_rt_bwd(*ops[:3], cs_p, ys_p)
+    torch.cuda.synchronize()
+    assert block_thomas_rt.launches == before + 1
+    _assert_close(got, block_thomas_rt_plain(*ops), "xs (B5)")
+    _assert_close(cs, cs_p, "cs")
+    _assert_close(ys, ys_p, "ys")
+    _assert_close(xs, block_thomas_rt_bwd_plain(*ops[:3], cs_p, ys_p), "xs")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nstr,nlyr,nbc", [(16, 65, 256), (16, 65, 2),
+                                           (12, 33, 64), (8, 33, 64),
+                                           (4, 33, 130)])
+def test_radsrc_kernel_matches_plain(cuda_device, nstr, nlyr, nbc):
+    from sbdart_tpu_torch.kernels.radsrc import (
+        rad_source_lane, rad_source_lane_plain)
+
+    *ops, umu = _radiance(nstr, nlyr, nbc, cuda_device)[
+        "rad_source_lane_plain"][0]
+    before = rad_source_lane.launches
+    got = rad_source_lane(*ops, umu)
+    torch.cuda.synchronize()
+    assert rad_source_lane.launches == before + 1
+    _assert_close(got, rad_source_lane_plain(*ops, umu), "j")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [None, 130])
+def test_eig_n2_planar_kernel_matches_plain(cuda_device, lanes):
+    """B8 on the nstr=4 radiance path's flat lane axis (4 x 33 x 4096)
+    and on its first 130 lanes."""
+    from sbdart_tpu_torch.kernels.eig_n2 import (
+        eig_beam_chain_n2, eig_beam_chain_n2_plain)
+
+    (cppl, cpml, r1, r2, mu0, tab), _ = _radiance(4, 33, 4096, cuda_device)[
+        "eig_beam_chain_lane"]
+    ops = tuple(x[None, ..., :lanes].contiguous() for x in (cppl, cpml, r1,
+                                                           r2))
+    ops += (mu0[..., :lanes].contiguous(),)
+    before = eig_beam_chain_n2.launches
+    got = eig_beam_chain_n2(*ops, tab)
+    torch.cuda.synchronize()
+    assert eig_beam_chain_n2.launches == before + 1
+    for name, g, w in zip(NAMES, got, eig_beam_chain_n2_plain(*ops, tab)):
+        _assert_close(g, w, name)
+
+
+@pytest.mark.cuda
+def test_eig_beam_flat_entry_matches_plain(cuda_device):
+    """B4 on the flat radiance lane axis (16 modes x 65 layers x 256)."""
+    from sbdart_tpu_torch.kernels.eig_beam import (
+        eig_beam_chain, eig_beam_chain_lane)
+
+    (cppl, cpml, r1, r2, mu0, tab), _ = _radiance(16, 65, 256, cuda_device)[
+        "eig_beam_chain_lane"]
+    before = eig_beam_chain.launches
+    got = eig_beam_chain_lane(cppl, cpml, r1, r2, mu0, tab)
+    torch.cuda.synchronize()
+    assert eig_beam_chain.launches == before + 1
+    want = eig_beam_chain_lane(cppl, cpml, r1, r2, mu0, tab, kernels=False)
+    for name, g, w in zip(NAMES, got, want):
+        _assert_close(g, w, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nstr,brdf", [(4, False), (8, True), (12, True),
+                                       (16, False)])
+def test_radiance_solve_kernels_match_plain(cuda_device, nstr, brdf):
+    """solve_rte(onlyfl=False) in float32 through the kernels against the
+    plain path on the card, with the thermal source, 130 band-columns x 9
+    layers: every field within chip_smoke's 5e-4 of its max."""
+    import chip_smoke
+    from sbdart_tpu_torch.kernels.radsrc import rad_source_lane
+    from sbdart_tpu_torch.solver.disort import solve_rte
+
+    args, kw = chip_smoke.radiance_problem(130, 9, cuda_device, nstr=nstr,
+                                           planck=True, brdf=brdf)
+    before = rad_source_lane.launches
+    got = solve_rte(*args, dtype=torch.float32, **kw)
+    want = solve_rte(*args, dtype=torch.float32, eig_method="plain", **kw)
+    assert rad_source_lane.launches == before + 1
+    for name in ("uu", "rfldir", "rfldn", "flup", "uavg", "dfdt"):
+        g, w = getattr(got, name), getattr(want, name)
+        assert torch.isfinite(g).all(), name
+        err = float((g - w).abs().max() / w.abs().max().clamp_min(1e-9))
+        assert err <= chip_smoke.E2E_BAR, (name, err)
+
+
 @pytest.mark.cuda
 def test_kernels_refuse_float64_on_card(cuda_device):
     from sbdart_tpu_torch.kernels.blocktri_n2 import block_thomas_rt_n2
@@ -172,3 +286,14 @@ def test_kernels_refuse_float64_on_card(cuda_device):
     hist = block_thomas_rt_fwd(*bvp)
     with pytest.raises(TypeError, match="float32"):
         block_thomas_rt_bwd(*(x.double() for x in bvp[:3] + hist))
+    from sbdart_tpu_torch.kernels.eig_n2 import eig_beam_chain_n2
+    from sbdart_tpu_torch.kernels.radsrc import rad_source_lane
+
+    ops = _radiance(4, 5, 3, cuda_device)
+    *src, umu = ops["rad_source_lane_plain"][0]
+    with pytest.raises(TypeError, match="float32"):
+        rad_source_lane(*(x.double() for x in src), umu)
+    (cppl, cpml, r1, r2, mu0, tab), _ = ops["eig_beam_chain_lane"]
+    with pytest.raises(TypeError, match="float32"):
+        eig_beam_chain_n2(*(x[None].double() for x in (cppl, cpml, r1, r2)),
+                          mu0.double(), tab)
