@@ -23,8 +23,11 @@ Phases, one JSON line each; the first failure exits non-zero:
               the nstr=16 bench shape (16 modes, 5 cosines, 65 layers x
               256 columns), B8 at 4 modes x 33 layers x 4096 columns, B4
               on the flat radiance lane axis (16 x 65 x 256); and B5/B6 at
-              N = 2, 65 layers x 49152 columns; each also at 130 columns
-              or lanes;
+              N = 2, 65 layers x 49152 columns; the generic path's B9
+              (eigen chain) on the all-mode lanes of G1 (N = 8), G2
+              (N = 4) and G3 (N = 2), B10 (block-Thomas on assembled
+              blocks) on G2's BVP (m = 8), B5/B6 at odd N on G4's (N = 3)
+              and G5's (N = 5) BVP; each also at 130 columns or lanes;
   4. solve    solve_rte in float32 through the kernels against the plain
               path on the card (max-abs error / max-abs <= 5e-4), with
               band-columns/s for both, and the kernel path's device time
@@ -36,7 +39,16 @@ Phases, one JSON line each; the first failure exits non-zero:
               (uu at 5 cosines x 3 azimuths, and the fluxes) at nstr=4
               (4096 x 33: B8, B2, B7), nstr=16 (256 x 65 and 2048 x 65:
               B4, B6, B7) and nstr=8 on a Hapke BRDF with the thermal
-              source (512 x 33: B4, B5, B7);
+              source (512 x 33: B4, B5, B7); and the generic path
+              (band-columns x 3 k-terms): G1 nstr=16 x 65 layers x 256,
+              all modes without user angles (B9, B6); G2 nstr=8 x 33 x
+              2048, all modes (B9, B5); G3 nstr=4 x 33 x 4096, all modes
+              (B9 at N = 2, B2); G4 nstr=6 x 33 x 4096, fluxes with the
+              Planck source (B5 at N = 3, the lane eigen route); G5
+              nstr=10 x 33 x 256, radiances at the 5 x 3 view grid (B5 at
+              N = 5, compute_radiances); G6 nstr=8 x 33 x 2048, fluxes on a
+              Hapke BRDF (B4 flat, B5); and G2 again with
+              bvp_method="scan", the assembled-block route (B9, B10);
   5. cli      the sbdart CLI on BASELINE config 1 (Lambertian closure
               botup/botdn = albcon to 1e-5), config 2 (tropical LW, 4-40 um,
               nstr=4: OLR finite, positive, and within 1e-2 of the float64
@@ -46,7 +58,8 @@ Phases, one JSON line each; the first failure exits non-zero:
               radiances at 6 zenith x 3 azimuth angles, iout=20: uu finite,
               >= -1e-9 on the float64 route, the float32 route within
               1e-2 of it, the mean TOA radiance above the same run's
-              without aerosol).
+              without aerosol), and config 4's namelist at nstr=10 (the
+              generic path) under the same checks.
 
 Kernel launch counters are zeroed just before each run of phases 4 and
 5 and read just after it: each kernel must have been launched by the runs
@@ -107,7 +120,7 @@ NBC_RAD16 = 256
 # BASELINE config 4: rural aerosol, 16 streams, radiances on a uzen x phi
 # grid (0.25-2.0 um at 0.005 um)
 INPUT_C4 = """ &INPUT
-   idatm=2, iaer={iaer}, vis=10, albcon=0.1, nstr=16, sza=40,
+   idatm=2, iaer={iaer}, vis=10, albcon=0.1, nstr={nstr}, sza=40,
    wlinf=0.25, wlsup=2.0, wlinc=0.005,
    nzen=6, uzen=0,30,60,75,120,150, nphi=3, phi=0,90,180, iout=20
  /
@@ -380,6 +393,58 @@ def radiance_kernel_operands(args, kw):
     return seen
 
 
+def generic_problem(nbc, nk, nlyr, device, *, nstr, onlyfl, angles=False,
+                    planck=False, brdf=False, seed=0):
+    """solve_rte inputs for the generic path: flux_problem's optics
+    (nbc band-columns x nk k-terms x nlyr layers, nstr + 1 moments, or 65
+    with `angles`); with `angles` the 5 x 3 view grid, with `brdf`
+    DISORT's default Hapke surface.  Returns (dtau, ssalb, pmom) and the
+    keywords."""
+    import numpy as np
+
+    prob = flux_problem(nbc, nk, nlyr, device, seed=seed,
+                        nmom=65 if angles else nstr + 1, planck=planck)
+    args = (prob.pop("dtau"), prob.pop("ssalb"), prob.pop("pmom"))
+    kw = dict(nstr=nstr, onlyfl=onlyfl, **prob)
+    if angles:
+        kw.update(umu=np.array(UMU_VIEW), phi=np.array(PHI_VIEW))
+    if brdf:
+        from sbdart_tpu_torch.solver.brdf import HapkeBrdf
+
+        kw["brdf"] = HapkeBrdf()
+    return args, kw
+
+
+def generic_kernel_operands(args, kw):
+    """The operands the generic path hands B9 (`eig_chain_lane`: cppl,
+    cpml [N, N, lanes], mu, w) and its fused BVP solve (gp, gm, ee, refl,
+    rhs), captured from one float32 run of its plain path:
+    {entry: (positional args, keyword args)}."""
+    import torch
+
+    from sbdart_tpu_torch.kernels import blocktri_rt_streamed, eig_chain
+    from sbdart_tpu_torch.solver.disort import solve_rte
+
+    seen = {}
+    mods = {"eig_chain_lane": eig_chain, "solve_bvp": blocktri_rt_streamed}
+    saved = {n: getattr(m, n) for n, m in mods.items()}
+
+    def spy(name):
+        def call(*a, **k):
+            seen[name] = (a, k)
+            return saved[name](*a, **k)
+        return call
+
+    try:
+        for n, m in mods.items():
+            setattr(m, n, spy(n))
+        solve_rte(*args, eig_method="plain", dtype=torch.float32, **kw)
+    finally:
+        for n, m in mods.items():
+            setattr(m, n, saved[n])
+    return seen
+
+
 def _ge_flops(m, r):
     """Operations of a pivoted elimination of an m x m system with r
     right-hand sides, back-substitution included."""
@@ -402,6 +467,14 @@ def flops_of(kname, args):
         per = (n**3 / 3 + SWEEPS_F32 * (n * (n - 1) / 2) * 12 * n
                + 5 * n**3 + 2 * n**3 + _ge_flops(n, 1))
         return nlyr * b * per
+    if kname == "eig_chain":
+        nlyr, n, _, b = args[0].shape
+        eigh = (SWEEPS_F32 * (n * (n - 1) / 2) * 12 * n if n > 2 else 40)
+        return nlyr * b * (n**3 / 3 + eigh + 5 * n**3 + 4 * n * n)
+    if kname == "block_thomas":
+        nlyr, m, _, b = args[0].shape
+        return nlyr * b * (2 * m**3 + 2 * m * m + _ge_flops(m, m + 1)
+                           + 2 * m * m)
     if kname == "radsrc":
         nm, nu, n, nstr = args[0].shape
         lb = args[3].shape[-1]
@@ -725,6 +798,161 @@ def phase_kernels_bvp_n2(device, reps):
     return summary
 
 
+# the generic path's solve phases: (name, nstr, band-columns, layers,
+# keywords of generic_problem)
+GENERIC = {
+    "G1": (16, NBC_RAD16, NLYR16, dict(onlyfl=False)),
+    "G2": (8, NBC16, NLYR, dict(onlyfl=False)),
+    "G3": (4, 4096, NLYR, dict(onlyfl=False)),
+    "G4": (6, 4096, NLYR, dict(onlyfl=True, planck=True)),
+    "G5": (10, NBC_RAD16, NLYR, dict(onlyfl=False, angles=True)),
+    "G6": (8, NBC16, NLYR, dict(onlyfl=True, brdf=True)),
+}
+
+
+def generic_operands(name, device):
+    """The generic path's kernel operands at one of its solve shapes."""
+    nstr, nbc, nlyr, kw = GENERIC[name]
+    return generic_kernel_operands(*generic_problem(
+        nbc, NK, nlyr, device, nstr=nstr, **kw))
+
+
+def phase_kernels_generic(device, reps):
+    """The generic path's kernels against their plain versions on the
+    operands the path gives them: B9 on the all-mode lanes of G1 (N = 8,
+    16 modes x 65 layers x 768 columns), G2 (N = 4) and G3 (N = 2) and on
+    130 lanes; B10 on solver/bvp.py:assemble_blocks of G2's BVP (m = 8,
+    33 layers x 49152 columns) and on 130 columns; B5 and B6 at odd N on
+    G4's (N = 3, 12288 columns) and G5's (N = 5, 7680 columns) BVP and on
+    130 columns."""
+    import torch
+
+    from sbdart_tpu_torch.kernels.blocktri import (
+        block_thomas, block_thomas_plain)
+    from sbdart_tpu_torch.kernels.blocktri_rt_streamed import (
+        block_thomas_rt_fwd_plain)
+    from sbdart_tpu_torch.kernels.eig_chain import eig_chain, eig_chain_plain
+    from sbdart_tpu_torch.solver.bvp import assemble_blocks
+
+    summary = {}
+    for name in ("G1", "G2", "G3", "G4", "G5"):
+        ops = generic_operands(name, device)
+        calls = {}
+        if "eig_chain_lane" in ops:
+            (cppl, cpml, mu, w), _ = ops["eig_chain_lane"]
+            flat = tuple(x[None].contiguous() for x in (cppl, cpml))
+            del cppl, cpml
+            for lanes in (flat[0].shape[-1], 130):
+                sl = tuple(x[..., :lanes].contiguous() for x in flat)
+                calls[("eig_chain", lanes)] = (
+                    ("kk", "gp", "gm"),
+                    lambda sl=sl: eig_chain(*sl, mu, w),
+                    lambda sl=sl: eig_chain_plain(*sl, mu, w), 2, sl)
+        bvp, _ = ops["solve_bvp"]
+        del ops
+        if name == "G2":
+            gp, gm, ee, refl, rhs = bvp
+            # an exact float32 beam resonance (k = 1/mu0 at a column's
+            # no-beam dither) leaves a column's rhs non-finite, on the
+            # reference's route too: hold the finite columns
+            keep = torch.isfinite(rhs).all(dim=0).all(dim=0)
+            blocks = tuple(x[..., keep].contiguous() for x in
+                           (*assemble_blocks(gp, gm, ee, refl), rhs))
+            for cols in (blocks[0].shape[-1], 130):
+                sl = tuple(x[..., :cols].contiguous() for x in blocks)
+                calls[("block_thomas", cols)] = (
+                    ("xs",), lambda sl=sl: block_thomas(*sl),
+                    lambda sl=sl: block_thomas_plain(*sl), 2, sl)
+            del blocks
+        elif name in ("G4", "G5"):
+            for cols in (bvp[0].shape[-1], 130):
+                sl = tuple(x[..., :cols].contiguous() for x in bvp)
+                hist = block_thomas_rt_fwd_plain(*sl)
+                for kname, call in bvp_calls(sl, hist).items():
+                    calls[(kname, cols)] = call
+        del bvp
+        rows = []
+        main = {"eig_chain": "G1", "block_thomas": "G2"}
+        for (kname, cols), (names, kern, plain, plain_reps, args) in \
+                calls.items():
+            row = check_kernel(kname, names, kern, plain, cols, args)
+            row.update(shape=name, columns=cols,
+                       n=int(args[0].shape[1]) // (
+                           2 if kname == "block_thomas" else 1))
+            if cols != 130:
+                time_kernel(row, kern, plain, reps, plain_reps)
+            fold(summary, row, main=cols != 130 and main.get(kname) == name)
+            rows.append(row)
+        emit({"phase": "kernel", "path": "generic", "shape": name,
+              "bar": {"rtol": RTOL, "atol": ATOL}, "results": rows})
+        del calls, rows
+        torch.cuda.empty_cache()
+    return summary
+
+
+def phase_generic(device, reps, name, bvp_method="auto"):
+    """solve_rte on the generic path in float32 through the kernels
+    against its plain path on the card, at one of GENERIC's shapes: the
+    fluxes (and uu where asked) within 5e-4 of each field's max, timed.
+    `bvp_method` "scan" takes the assembled-block route (B10)."""
+    import torch
+
+    from sbdart_tpu_torch.solver.disort import route, solve_rte
+
+    nstr, nbc, nlyr, pkw = GENERIC[name]
+    args, kw = generic_problem(nbc, NK, nlyr, device, nstr=nstr, **pkw)
+    if route(nstr=nstr, onlyfl=kw["onlyfl"], brdf=kw.get("brdf"),
+             umu=kw.get("umu"), phi=kw.get("phi")) != "generic":
+        raise SmokeFailure(f"{name}: not a generic-path request")
+
+    def run(method):
+        return solve_rte(*args, eig_method=method, bvp_method=bvp_method,
+                         dtype=torch.float32, **kw)
+
+    out_k = run("auto")
+    out_p = run("plain")
+    errs = {}
+    fields = ("rfldn", "flup", "uavg", "dfdt")
+    fields += ("uu",) if "umu" in kw else ()
+    for field in ("rfldir",) + fields:
+        a, b = getattr(out_k, field), getattr(out_p, field)
+        if not (bool(torch.isfinite(a).all())
+                and bool(torch.isfinite(b).all())):
+            raise SmokeFailure(f"{name} {field}: non-finite output")
+        errs[field] = float((a - b).abs().max()
+                            / b.abs().max().clamp_min(1e-9))
+    if tuple(out_k.flup.shape) != (nbc, NK, nlyr + 1):
+        raise SmokeFailure(f"{name}: flup shape {tuple(out_k.flup.shape)}")
+    if ("umu" in kw) != (out_k.uu is not None):
+        raise SmokeFailure(f"{name}: uu {out_k.uu is not None}")
+    worst = max(errs[f] for f in fields)
+    k_ms = timed_ms(lambda: run("auto"), reps)
+    p_ms = timed_ms(lambda: run("plain"), 2, warmup=0)
+    dev = device_breakdown(lambda: run("auto"), max(2, reps // 2))
+    busy_ms = dev["device_busy_ms"]
+    rec = {"phase": "solve", "kind": "generic", "cell": name,
+           "bvp_method": bvp_method, "nstr": nstr,
+           "onlyfl": kw["onlyfl"], "angles": "umu" in kw,
+           "planck": bool(kw.get("planck")),
+           "brdf": "hapke" if "brdf" in kw else None,
+           "band_columns": nbc, "k_terms": NK, "layers": nlyr,
+           "dtype": "float32", "rel_err": errs, "bar": E2E_BAR,
+           "kernel_path_ms": k_ms, "plain_path_ms": p_ms,
+           "kernel_path_bc_per_s": nbc / (k_ms / 1e3),
+           "plain_path_bc_per_s": nbc / (p_ms / 1e3),
+           "kernel_path_device_busy_ms": busy_ms,
+           "kernel_path_device_idle_share": (
+               None if busy_ms is None else max(0.0, 1.0 - busy_ms / k_ms)),
+           "kernel_path_kernel_device_ms": dev["kernel_device_ms"],
+           "kernel_path_glue_device_ms": dev["glue_device_ms"],
+           "kernel_path_device_ops": dev["device_ops_per_solve"]}
+    emit(rec)
+    if worst > E2E_BAR:
+        raise SmokeFailure(f"{name}: kernel vs plain path {worst:.3g} > "
+                           f"{E2E_BAR}")
+    return rec
+
+
 def phase_radiance(device, reps, *, nstr, nbc, nlyr, planck=False,
                    brdf=False):
     """solve_rte(onlyfl=False) through the kernels against the plain path
@@ -950,9 +1178,10 @@ def phase_cli_config3():
     return rec
 
 
-def phase_cli_config4():
+def phase_cli_config4(nstr=16):
     """BASELINE config 4 (rural aerosol, nstr=16, radiances at 6 zenith x
-    3 azimuth angles, iout=20), through the CLI in float32 on the kernels:
+    3 azimuth angles, iout=20), or its namelist at another `nstr` (10: the
+    generic path, B5 at N = 5), through the CLI in float32 on the kernels:
     the iout=20 text as api.run renders it; the mean TOA radiance above
     the same run's without aerosol (tests/test_pipeline.py:137-156); uu
     finite and, as that test asks, >= -1e-9 on the float64 route (the
@@ -967,7 +1196,7 @@ def phase_cli_config4():
     from sbdart_tpu_torch.namelist import loads_namelist
     from sbdart_tpu_torch.outputs import format_iout, integrate_spectral
 
-    cfg, text, cli_s = run_cli(INPUT_C4.format(iaer=1))
+    cfg, text, cli_s = run_cli(INPUT_C4.format(iaer=1, nstr=nstr))
     res = run(cfg)
     if format_iout(res) != text:
         raise SmokeFailure("cli config 4: text differs from api.run's")
@@ -978,14 +1207,14 @@ def phase_cli_config4():
     t0 = time.perf_counter()
     uu64 = run(cfg, dtype="float64").uu
     f64_s = time.perf_counter() - t0
-    clean = run(loads_namelist(INPUT_C4.format(iaer=0)))
+    clean = run(loads_namelist(INPUT_C4.format(iaer=0, nstr=nstr)))
 
     def toa_mean(r):
         return float(integrate_spectral(r, r.uu)[0].mean())
 
     scale = float(np.abs(uu64).max())
     rec = {"phase": "cli", "input": "BASELINE config 4",
-           "wavelengths": int(len(res.wl)), "seconds": cli_s,
+           "nstr": nstr, "wavelengths": int(len(res.wl)), "seconds": cli_s,
            "iout20_head": text.splitlines()[:4],
            "uu_min": float(uu.min()), "uu_max": float(uu.max()),
            "uu_f64_min": float(uu64.min()),
@@ -1023,15 +1252,15 @@ KERNELS = {   # name: (wrapper module, wrapper, source, the TPU kernel,
                        "eig_n2_scatter_kernel"),
     "eig_beam": ("eig_beam", "eig_beam_chain", "eig_beam.cu",
                  "sbdart_tpu/pallas/eig.py:281", "eig_beam_kernel"),
-    "blocktri_rt": ("blocktri_rt", "block_thomas_rt", "blocktri_rt.cu",
+    "blocktri_rt": ("blocktri_rt", "block_thomas_rt", "blocktri_rt.cuh",
                     "sbdart_tpu/pallas/blocktri.py:269",
                     "blocktri_rt_kernel"),
     "blocktri_rt_fwd": ("blocktri_rt_streamed", "block_thomas_rt_fwd",
-                        "blocktri_rt_streamed.cu",
+                        "blocktri_rt_streamed.cuh",
                         "sbdart_tpu/pallas/blocktri.py:373",
                         "blocktri_rt_fwd_kernel"),
     "blocktri_rt_bwd": ("blocktri_rt_streamed", "block_thomas_rt_bwd",
-                        "blocktri_rt_streamed.cu",
+                        "blocktri_rt_streamed.cuh",
                         "sbdart_tpu/pallas/blocktri.py:457",
                         "blocktri_rt_bwd_kernel"),
     "radsrc": ("radsrc", "rad_source_lane", "radsrc.cu",
@@ -1039,6 +1268,11 @@ KERNELS = {   # name: (wrapper module, wrapper, source, the TPU kernel,
     "eig_n2_planar": ("eig_n2", "eig_beam_chain_n2", "eig_n2_planar.cu",
                       "sbdart_tpu/pallas/eig.py:764",
                       "eig_n2_planar_kernel"),
+    "eig_chain": ("eig_chain", "eig_chain", "eig_chain.cu",
+                  "sbdart_tpu/pallas/eig.py:272", "eig_chain_kernel"),
+    "block_thomas": ("blocktri", "block_thomas", "block_thomas.cu",
+                     "sbdart_tpu/pallas/blocktri.py:93",
+                     "block_thomas_kernel"),
 }
 
 
@@ -1076,7 +1310,8 @@ def main() -> int:
     summary = phase_kernels(device, reps=20)
     for part in (phase_kernels_general(device, reps=20),
                  phase_kernels_radiance(device, reps=20),
-                 phase_kernels_bvp_n2(device, reps=10)):
+                 phase_kernels_bvp_n2(device, reps=10),
+                 phase_kernels_generic(device, reps=10)):
         merge(summary, part)
 
     wrappers = {
@@ -1109,6 +1344,17 @@ def main() -> int:
         (phase_cli_config2, ("eig_n2_scatter", "blocktri_rt_n2")),
         (phase_cli_config3, ("eig_beam", "blocktri_rt")),
         (phase_cli_config4, ("eig_beam", "blocktri_rt", "radsrc")),
+        (lambda: phase_generic(device, 3, "G1"),
+         ("eig_chain", "blocktri_rt_fwd", "blocktri_rt_bwd")),
+        (lambda: phase_generic(device, 5, "G2"), ("eig_chain", "blocktri_rt")),
+        (lambda: phase_generic(device, 5, "G2", bvp_method="scan"),
+         ("eig_chain", "block_thomas")),
+        (lambda: phase_generic(device, 5, "G3"),
+         ("eig_chain", "blocktri_rt_n2")),
+        (lambda: phase_generic(device, 5, "G4"), ("blocktri_rt",)),
+        (lambda: phase_generic(device, 5, "G5"), ("blocktri_rt",)),
+        (lambda: phase_generic(device, 5, "G6"), ("eig_beam", "blocktri_rt")),
+        (lambda: phase_cli_config4(nstr=10), ("blocktri_rt",)),
     ]
     launches = dict.fromkeys(KERNELS, 0)
     for phase, owned in owners:

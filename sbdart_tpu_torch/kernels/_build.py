@@ -27,9 +27,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("eig_n2_deltam.cu", "eig_n2_scatter.cu", "eig_n2_planar.cu",
-           "eig_beam.cu", "blocktri_rt_n2.cu", "blocktri_rt.cu",
-           "blocktri_rt_streamed.cu", "radsrc.cu")
-HEADERS = ("eig_n2_chain.cuh", "solve_step.cuh")
+           "eig_beam.cu", "eig_chain.cu", "blocktri_rt_n2.cu",
+           "blocktri_rt.cu", "blocktri_rt_odd.cu", "blocktri_rt_streamed.cu",
+           "blocktri_rt_streamed_odd.cu", "block_thomas.cu", "radsrc.cu")
+HEADERS = ("eig_n2_chain.cuh", "eig_chain.cuh", "solve_step.cuh",
+           "blocktri_rt.cuh", "blocktri_rt_streamed.cuh")
 # IEEE sqrt/div/exp (no --use_fast_math) and no contracted multiply-adds:
 # the kernels round where their plain torch versions do.
 NVCC_FLAGS = (
@@ -120,6 +122,10 @@ def library() -> ctypes.CDLL:
     lib.sbdart_radsrc.restype = _I
     lib.sbdart_eig_beam.argtypes = [_P] * 10 + [_I, _I, _I, _P, _P]
     lib.sbdart_eig_beam.restype = _I
+    lib.sbdart_eig_chain.argtypes = [_P] * 5 + [_I, _I, _I, _P, _P]
+    lib.sbdart_eig_chain.restype = _I
+    lib.sbdart_block_thomas.argtypes = [_P] * 7 + [_I, _I, _I, _P]
+    lib.sbdart_block_thomas.restype = _I
     lib.sbdart_blocktri_rt_n2.argtypes = [_P] * 8 + [_I, _I, _P]
     lib.sbdart_blocktri_rt_n2.restype = _I
     lib.sbdart_blocktri_rt.argtypes = [_P] * 8 + [_I, _I, _I, _P]

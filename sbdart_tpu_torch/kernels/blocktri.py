@@ -1,0 +1,85 @@
+"""B10: block-Thomas elimination on blocks assembled beforehand.
+
+Port of sbdart_tpu/pallas/blocktri.py:_kernel (entry block_thomas).  The
+block-tridiagonal system diag/lower/upper [L, m, m, B], rhs [L, m, B]
+(m = 2N, the blocks of solver/bvp.py:assemble_blocks) is solved column by
+column with the full W history:
+
+    forward   (diag_l - lower_l W_{l-1}) [W_l | y_l]
+                  = [upper_l | r_l - lower_l y_{l-1}]     (solve_step)
+    backward  x_{L-1} = y_{L-1};  x_l = y_l - W_l x_{l+1}
+
+with kernels/blocktri_rt.py:solve_step (the reference's _solve_step:
+first-max implicit pivoting, shrinking elimination).  `block_thomas`
+launches the CUDA kernel csrc/block_thomas.cu on CUDA tensors and runs
+`block_thomas_plain` on CPU tensors.  The reference pads the columns with
+identity blocks and refuses shapes beyond its VMEM; neither is a limit
+here.  Returns xs [L, m, B].
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sbdart_tpu_torch.kernels.blocktri_rt import solve_step
+from sbdart_tpu_torch.ops.lane import lmatmul as _mm
+from sbdart_tpu_torch.ops.lane import lmatvec as _mv
+
+
+def block_thomas_plain(diag, lower, upper, rhs):
+    """Plain torch version of the B10 kernel, any device and float dtype:
+    a Python loop over layers, sums over a block index in order."""
+    nlyr, m, _, b = diag.shape
+    w_prev = torch.zeros((m, m, b), dtype=diag.dtype, device=diag.device)
+    y_prev = torch.zeros((m, b), dtype=diag.dtype, device=diag.device)
+    ws, ys = [], []
+    for l in range(nlyr):
+        dt = diag[l] - _mm(lower[l], w_prev)
+        rt = rhs[l] - _mv(lower[l], y_prev)
+        sol = solve_step(dt, torch.cat([upper[l], rt[:, None, :]], dim=1))
+        w_prev, y_prev = sol[:, :m], sol[:, m]
+        ws.append(w_prev)
+        ys.append(y_prev)
+    xs = [None] * nlyr
+    xs[-1] = y_prev
+    for l in range(nlyr - 2, -1, -1):
+        xs[l] = ys[l] - _mv(ws[l], xs[l + 1])
+    return torch.stack(xs, dim=0)
+
+
+def block_thomas(diag, lower, upper, rhs):
+    """B10: the CUDA kernel on CUDA tensors (float32 only, m = 2, 4, ...,
+    16), the plain torch version on CPU tensors."""
+    if diag.device.type == "cpu":
+        return block_thomas_plain(diag, lower, upper, rhs)
+    from sbdart_tpu_torch.kernels import _build
+
+    nlyr, m, _, b = diag.shape
+    if m not in range(2, 17, 2):
+        raise ValueError(f"block_thomas: the kernel takes m = 2, 4, ..., 16, "
+                         f"got {m}")
+    want = {"diag": (nlyr, m, m, b), "lower": (nlyr, m, m, b),
+            "upper": (nlyr, m, m, b), "rhs": (nlyr, m, b)}
+    for name, t in zip(want, (diag, lower, upper, rhs)):
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"block_thomas: {name} has shape "
+                             f"{tuple(t.shape)}, expected {want[name]}")
+    ins = [t.contiguous() for t in (diag, lower, upper, rhs)]
+    _build.require_cuda_f32("block_thomas", *ins)
+    new = dict(device=diag.device, dtype=torch.float32)
+    ws = torch.empty((nlyr, m * m, b), **new)          # W history scratch
+    ys = torch.empty((nlyr, m, b), **new)
+    xs = torch.empty((nlyr, m, b), **new)
+    lib = _build.library()
+    with torch.cuda.device(diag.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.sbdart_block_thomas(
+            *(t.data_ptr() for t in ins), ws.data_ptr(), ys.data_ptr(),
+            xs.data_ptr(), nlyr, m, b, stream,
+        )
+    block_thomas.launches += 1
+    _build.check(code, "block_thomas")
+    return xs
+
+
+block_thomas.launches = 0

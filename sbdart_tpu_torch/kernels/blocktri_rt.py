@@ -1,5 +1,5 @@
-"""B5: fused SETMTX + SOLVE0 for general n (N = 2, 4, 6, 8), block-Thomas
-over layers with the full W history.
+"""B5: fused SETMTX + SOLVE0 for general n (N = 1 to 8: nstr 2 to 16),
+block-Thomas over layers with the full W history.
 
 Port of sbdart_tpu/pallas/blocktri.py:_rt_kernel (reached via
 block_thomas_rt for n >= 4, and at n = 2 where its planar tile does not
@@ -122,9 +122,9 @@ def block_thomas_rt(gp, gm, ee, refl, rhs):
     from sbdart_tpu_torch.kernels import _build
 
     nlyr, n, _, b = gp.shape
-    if n not in (2, 4, 6, 8):
-        raise ValueError(f"block_thomas_rt: the kernel takes N = 2, 4, 6 or "
-                         f"8, got {n}")
+    if not 1 <= n <= 8:
+        raise ValueError(f"block_thomas_rt: the kernel takes N = 1 to 8, "
+                         f"got {n}")
     want = {"gp": (nlyr, n, n, b), "gm": (nlyr, n, n, b), "ee": (nlyr, n, b),
             "refl": (n, n, b), "rhs": (nlyr, 2 * n, b)}
     for name, t in zip(want, (gp, gm, ee, refl, rhs)):

@@ -1,6 +1,6 @@
 """B6: fused SETMTX + SOLVE0 for general n with the rank-N factor history
-(N = 2, 4, 6, 8), as a forward kernel and a backward kernel, and the
-routing of every boundary-value solve.
+(N = 1 to 8), as a forward kernel and a backward kernel, and the routing
+of every boundary-value solve.
 
 Port of sbdart_tpu/pallas/blocktri.py:_rt_fwd_chunk_kernel and
 _rt_bwd_chunk_kernel, which its block_thomas_rt runs instead of _rt_kernel
@@ -125,9 +125,8 @@ def block_thomas_rt_streamed_plain(gp, gm, ee, refl, rhs):
 
 
 def _check_shapes(name, n, want, tensors):
-    if n not in (2, 4, 6, 8):
-        raise ValueError(f"{name}: the kernel takes N = 2, 4, 6 or 8, "
-                         f"got {n}")
+    if not 1 <= n <= 8:
+        raise ValueError(f"{name}: the kernel takes N = 1 to 8, got {n}")
     for key, t in zip(want, tensors):
         if tuple(t.shape) != want[key]:
             raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "

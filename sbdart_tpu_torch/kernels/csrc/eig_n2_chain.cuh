@@ -45,6 +45,39 @@ struct N2Out {
   float zm[2];
 };
 
+struct Eigh2 {
+  float k2_1, k2_2;     // eigenvalues, in the `wa <= wb` select's order
+  float v11, v12, v21, v22;   // eigenvector columns (v11, v21), (v12, v22)
+};
+
+// Closed-form symmetric 2x2 eigendecomposition of [[m11, q12], [q12, m22]]
+// by half-angle algebra (pallas/eig.py:_eigh2_inline): theta = atan2(2q,
+// m11 - m22) / 2 with cos(theta) >= 0, the `wa <= wb` select, no sort.
+// Shared by n2_chain and the general chain at N = 2 (eig_chain.cuh).
+__device__ __forceinline__ Eigh2 eigh2_half_angle(float m11, float q12,
+                                                  float m22) {
+  const float diff = m11 - m22;
+  const float rr = sqrtf(diff * diff + 4.0f * q12 * q12);
+  const bool safe = rr > 0.0f;
+  const float rs = safe ? rr : 1.0f;
+  const float cos2 = safe ? diff / rs : 1.0f;
+  const float sin2 = safe ? 2.0f * q12 / rs : 0.0f;
+  const float cth = sqrtf(fmaxf(0.5f * (1.0f + cos2), 0.0f));
+  const float sabs = sqrtf(fmaxf(0.5f * (1.0f - cos2), 0.0f));
+  const float sth = sin2 >= 0.0f ? sabs : -sabs;
+  const float wa = cth * cth * m11 + 2.0f * cth * sth * q12 + sth * sth * m22;
+  const float wb = sth * sth * m11 - 2.0f * cth * sth * q12 + cth * cth * m22;
+  const bool lo = wa <= wb;
+  Eigh2 e;
+  e.k2_1 = lo ? wa : wb;
+  e.k2_2 = lo ? wb : wa;
+  e.v11 = lo ? cth : -sth;
+  e.v21 = lo ? sth : cth;
+  e.v12 = lo ? -sth : cth;
+  e.v22 = lo ? cth : sth;
+  return e;
+}
+
 // The closed-form n = 2 chain (_n2_chain_planar) on prebuilt C^pp / C^pm
 // entries (11, 12, 21, 22), the reduced beam RHS r = (r1_1, r1_2, r2_1,
 // r2_2) and the beam cosine mu0p.
@@ -90,24 +123,9 @@ __device__ __forceinline__ N2Out n2_chain(
   const float m22 = l22 * a22;
   const float q12 = 0.5f * (m12v + m21v);
 
-  const float diff = m11 - m22;
-  const float rr = sqrtf(diff * diff + 4.0f * q12 * q12);
-  const bool safe = rr > 0.0f;
-  const float rs = safe ? rr : 1.0f;
-  const float cos2 = safe ? diff / rs : 1.0f;
-  const float sin2 = safe ? 2.0f * q12 / rs : 0.0f;
-  const float cth = sqrtf(fmaxf(0.5f * (1.0f + cos2), 0.0f));
-  const float sabs = sqrtf(fmaxf(0.5f * (1.0f - cos2), 0.0f));
-  const float sth = sin2 >= 0.0f ? sabs : -sabs;
-  const float wa = cth * cth * m11 + 2.0f * cth * sth * q12 + sth * sth * m22;
-  const float wb = sth * sth * m11 - 2.0f * cth * sth * q12 + cth * cth * m22;
-  const bool lo = wa <= wb;
-  const float k2_1 = lo ? wa : wb;
-  const float k2_2 = lo ? wb : wa;
-  const float v11 = lo ? cth : -sth;
-  const float v21 = lo ? sth : cth;
-  const float v12 = lo ? -sth : cth;
-  const float v22 = lo ? cth : sth;
+  const Eigh2 e = eigh2_half_angle(m11, q12, m22);
+  const float k2_1 = e.k2_1, k2_2 = e.k2_2;
+  const float v11 = e.v11, v12 = e.v12, v21 = e.v21, v22 = e.v22;
   N2Out o;
   o.kk[0] = sqrtf(fmaxf(k2_1, k.kk_floor));
   o.kk[1] = sqrtf(fmaxf(k2_2, k.kk_floor));

@@ -75,6 +75,30 @@ def _kernel_consts(mu, w, ylm0, par0) -> np.ndarray:
     return flat
 
 
+def eigh2_half_angle(m11, q12, m22):
+    """Closed-form symmetric 2x2 eigendecomposition of [[m11, q12], [q12,
+    m22]] by half-angle algebra (pallas/eig.py:_eigh2_inline), with the
+    `wa <= wb` select and no sort.  Returns (k2_1, k2_2, v11, v12, v21,
+    v22), eigenvector columns (v11, v21) and (v12, v22).  Shared by the
+    n = 2 chain here and the general chain at N = 2 (kernels/eig_chain.py;
+    csrc/eig_n2_chain.cuh:eigh2_half_angle on the card)."""
+    diff = m11 - m22
+    rr = torch.sqrt(diff * diff + 4.0 * q12 * q12)
+    safe = rr > 0.0
+    rs = torch.where(safe, rr, 1.0)
+    cos2 = torch.where(safe, diff / rs, 1.0)
+    sin2 = torch.where(safe, 2.0 * q12 / rs, 0.0)
+    cth = torch.sqrt(torch.clamp_min(0.5 * (1.0 + cos2), 0.0))
+    sabs = torch.sqrt(torch.clamp_min(0.5 * (1.0 - cos2), 0.0))
+    sth = torch.where(sin2 >= 0.0, sabs, -sabs)
+    wa = cth * cth * m11 + 2.0 * cth * sth * q12 + sth * sth * m22
+    wb = sth * sth * m11 - 2.0 * cth * sth * q12 + cth * cth * m22
+    lo = wa <= wb
+    return (torch.where(lo, wa, wb), torch.where(lo, wb, wa),
+            torch.where(lo, cth, -sth), torch.where(lo, -sth, cth),
+            torch.where(lo, sth, cth), torch.where(lo, cth, sth))
+
+
 def _n2_chain(c, cpp, cpm, r1a, r1b, r2a, r2b, mu0p):
     """Closed-form n = 2 chain (pallas/eig.py:_n2_chain_planar) on
     per-entry tensors.  Returns (kk1, kk2), gp [4], gm [4], zp [2], zm [2]."""
@@ -121,24 +145,7 @@ def _n2_chain(c, cpp, cpm, r1a, r1b, r2a, r2b, mu0p):
     q12 = 0.5 * (m12v + m21v)
 
     # half-angle symmetric 2x2 eigendecomposition, `wa <= wb` select only
-    diff = m11 - m22
-    rr = torch.sqrt(diff * diff + 4.0 * q12 * q12)
-    safe = rr > 0.0
-    rs = torch.where(safe, rr, 1.0)
-    cos2 = torch.where(safe, diff / rs, 1.0)
-    sin2 = torch.where(safe, 2.0 * q12 / rs, 0.0)
-    cth = torch.sqrt(torch.clamp_min(0.5 * (1.0 + cos2), 0.0))
-    sabs = torch.sqrt(torch.clamp_min(0.5 * (1.0 - cos2), 0.0))
-    sth = torch.where(sin2 >= 0.0, sabs, -sabs)
-    wa = cth * cth * m11 + 2.0 * cth * sth * q12 + sth * sth * m22
-    wb = sth * sth * m11 - 2.0 * cth * sth * q12 + cth * cth * m22
-    lo = wa <= wb
-    k2_1 = torch.where(lo, wa, wb)
-    k2_2 = torch.where(lo, wb, wa)
-    v11 = torch.where(lo, cth, -sth)
-    v21 = torch.where(lo, sth, cth)
-    v12 = torch.where(lo, -sth, cth)
-    v22 = torch.where(lo, cth, sth)
+    k2_1, k2_2, v11, v12, v21, v22 = eigh2_half_angle(m11, q12, m22)
     kk1 = torch.sqrt(torch.clamp_min(k2_1, c["kk_floor"]))
     kk2 = torch.sqrt(torch.clamp_min(k2_2, c["kk_floor"]))
 

@@ -157,8 +157,7 @@ def run_pipeline(
     want_rad = umu is not None
     thermal = thermal_mask(cfg, wl)
     any_thermal = bool(thermal.any())
-    why = unsupported(nstr=cfg.nstr, onlyfl=not want_rad, brdf=None,
-                      umu=umu, phi=phi)
+    why = unsupported(nstr=cfg.nstr, dtype=dtype, device=device)
     if why is not None:
         raise NotImplementedError(
             f"sbdart_tpu_torch.run_pipeline does not port {why} yet"

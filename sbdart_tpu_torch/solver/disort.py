@@ -1,37 +1,54 @@
 """solve_rte — the monochromatic discrete-ordinates solve (torch port of
 sbdart_tpu/solver/disort.py).
 
-Same signature as the reference, plus `device`.  The port runs, for every
-nstr whose N = nstr/2 is even and at most 8 (nstr 4, 8, 12, 16), with or
-without the thermal source:
+Same signature as the reference, plus `device`.  Routes (`route`), in the
+reference's order:
 
-  * flux-only (onlyfl) solves on a Lambertian surface, through the
-    lane-resident flux path (solver/fluxlane.py; the reference's
-    `lane_ok`, disort.py:118-123);
-  * radiance solves (onlyfl=False with umu and phi) on a Lambertian or
-    BRDF surface, through the lane-resident radiance path
-    (solver/radlane.py; the reference's `rad_lane_ok`, disort.py:154-158).
+  * flux-only solves on a Lambertian surface with N = nstr/2 even and at
+    most 8 (nstr 4, 8, 12, 16): the lane-resident flux path
+    (solver/fluxlane.py; the reference's `lane_ok`, disort.py:118-123);
+  * radiance solves (onlyfl=False with umu and phi) with N even and at
+    most 8, on either surface: the lane-resident radiance path
+    (solver/radlane.py; the reference's `rad_lane_ok`, disort.py:154-158);
+  * everything else -- odd N (nstr 2, 6, 10, 14), N > 8, flux-only solves
+    on a BRDF surface, all-mode solves without user angles: the generic
+    path (disort.py:181-329: solver/eig.py, sources.py, bvp.py, fields.py,
+    radiance.py).  In float32 it takes the reference's TPU route (B9 or
+    the fused front end B4/B8, B2/B5/B6 for the BVP); in float64 its CPU
+    route (torch.linalg eigh/Cholesky/solve and the lane block-Thomas).
 
-Every other combination (odd N or N > 8, flux-only BRDF, radiances
-without user angles) runs on the reference's generic path and raises
-NotImplementedError naming the ROADMAP slice that brings it.
-
-Routes (`eig_method`):
+Methods (`eig_method`):
   * "auto": float32 runs the kernel wrappers, which launch the CUDA
     kernels on CUDA tensors (and take the plain torch versions on CPU
     tensors); float64 runs the plain torch versions on whatever device
     the tensors are on, as the reference never sends f64 to its
     f32-only kernels, with 6 Jacobi sweeps (the reference lane route's)
-    where the float32 kernel runs 3.
+    where the float32 kernels run 3.
   * "plain": the plain torch versions, any dtype and device.
+
+BVP methods (`bvp_method`, the generic path's, as the reference's lane
+paths take none):
+  * "auto": the reference's routing (solver/bvp.py:178-191): float32 runs
+    the BVP kernel the reference runs at the shape (B2, B5 or B6, which
+    assemble the blocks on the fly), float64 assembles the blocks and runs
+    the lane block-Thomas;
+  * "scan": the reference's assembled-block route at every dtype
+    (assemble_blocks + block-Thomas); in float32 the elimination runs in
+    B10 (kernels/blocktri.py), the kernel the reference holds equal to
+    that scan (tests/test_pallas_kernels.py:20-29).
+
+Float32 on a CUDA device with N > 8 is refused (`unsupported`): no kernel
+is built past N = 8, and a plain version does not stand in for one.
 
 Outputs at ALL layer boundaries (the pipeline interpolates user levels).
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from sbdart_tpu_torch.dtypes import default_device, default_dtype, parse_dtype
@@ -47,26 +64,30 @@ class RteOutputs(NamedTuple):
 
 
 EIG_METHODS = ("auto", "plain")
+BVP_METHODS = ("auto", "scan")
 
 
-def unsupported(*, nstr: int, onlyfl: bool, brdf, umu=None,
-                phi=None) -> str | None:
-    """The ROADMAP slice that a request needs, or None when the port
-    serves it (N = nstr/2 even and <= 8; flux-only on a Lambertian
-    surface, or radiances at given umu and phi on either surface; with or
-    without the thermal source)."""
-    n = nstr // 2
-    if n % 2 or n > 8 or nstr % 2:
-        return (f"nstr={nstr} (N = nstr/2 odd or above 8): ROADMAP Queue A "
-                "item 7, the generic path")
-    if onlyfl and brdf is not None:
-        return ("a flux-only solve on a BRDF surface: ROADMAP Queue A "
-                "item 7, the generic path")
-    if not onlyfl and (umu is None or phi is None):
-        return ("radiances (onlyfl=False) without user angles umu and phi: "
-                "ROADMAP Queue A item 7, the generic path (the radiance "
-                "slice ports the lane path)")
+def unsupported(*, nstr: int, dtype, device) -> str | None:
+    """Why the port refuses a request, or None: float32 on a CUDA device
+    with N = nstr/2 above 8 needs B5/B6 beyond N = 8, which are not built
+    (ROADMAP Queue B)."""
+    if (nstr // 2 > 8 and parse_dtype(dtype) == torch.float32
+            and torch.device(device).type == "cuda"):
+        return (f"nstr={nstr} in float32 on a CUDA device (N = nstr/2 above "
+                "8): ROADMAP item \"B5/B6 beyond N = 8\"")
     return None
+
+
+def route(*, nstr: int, onlyfl: bool, brdf, umu=None, phi=None) -> str:
+    """The path a request takes: "flux_lane", "radiance_lane" or
+    "generic" (disort.py:118-181)."""
+    n = nstr // 2
+    lane_n = n <= 8 and n % 2 == 0
+    if onlyfl and brdf is None and lane_n:
+        return "flux_lane"
+    if not onlyfl and umu is not None and phi is not None and lane_n:
+        return "radiance_lane"
+    return "generic"
 
 
 def solve_rte(
@@ -98,22 +119,25 @@ def solve_rte(
     bvp_method: str = "auto",
     device=None,
 ) -> RteOutputs:
-    why = unsupported(nstr=nstr, onlyfl=onlyfl, brdf=brdf, umu=umu, phi=phi)
-    if why is not None:
-        raise NotImplementedError(
-            f"sbdart_tpu_torch.solve_rte does not port {why} yet"
-        )
-    if eig_method not in EIG_METHODS or bvp_method != "auto":
+    if eig_method not in EIG_METHODS or bvp_method not in BVP_METHODS:
         raise ValueError(
-            f"eig_method must be one of {EIG_METHODS} and bvp_method 'auto' "
-            f"(got {eig_method!r}, {bvp_method!r})"
+            f"eig_method must be one of {EIG_METHODS} and bvp_method one of "
+            f"{BVP_METHODS} (got {eig_method!r}, {bvp_method!r})"
         )
     if planck and temper is None:
         raise ValueError("planck=True requires temper")
+    if not onlyfl and umu is not None and phi is None:
+        raise ValueError("radiances at user cosines umu need the azimuths "
+                         "phi")
     if device is None:
         device = (dtauc.device if isinstance(dtauc, torch.Tensor)
                   else default_device())
     dtype = default_dtype(device) if dtype is None else parse_dtype(dtype)
+    why = unsupported(nstr=nstr, dtype=dtype, device=device)
+    if why is not None:
+        raise NotImplementedError(
+            f"sbdart_tpu_torch.solve_rte does not port {why} yet"
+        )
 
     def t(x):
         return torch.as_tensor(x, dtype=dtype, device=device)
@@ -131,7 +155,7 @@ def solve_rte(
     ssalb_in = ssalb_in.expand(batch + (nlyr,))
     pmom = pmom.expand(batch + pmom.shape[-2:])
 
-    from sbdart_tpu_torch.kernels.eig_beam import SWEEPS_F32, SWEEPS_F64
+    from sbdart_tpu_torch.kernels.eig_chain import SWEEPS_F32, SWEEPS_F64
     from sbdart_tpu_torch.solver.fluxlane import (
         PlanckInputs,
         solve_rte_flux_lane,
@@ -144,7 +168,8 @@ def solve_rte(
                             for x in (wvnlo, wvnhi, btemp, ttemp, temis)))
     kernels = eig_method == "auto" and dtype == torch.float32
     sweeps = SWEEPS_F32 if dtype == torch.float32 else SWEEPS_F64
-    if not onlyfl:
+    path = route(nstr=nstr, onlyfl=onlyfl, brdf=brdf, umu=umu, phi=phi)
+    if path == "radiance_lane":
         from sbdart_tpu_torch.solver.radlane import solve_rte_radiance_lane
 
         return solve_rte_radiance_lane(
@@ -153,8 +178,150 @@ def solve_rte(
             phi=phi, corint=corint, planck=pk, brdf=brdf, kernels=kernels,
             sweeps=sweeps,
         )
-    return solve_rte_flux_lane(
-        dtauc, ssalb_in, pmom, fbeam=fbeam, umu0=umu0, fisot=fisot,
-        albedo=albedo, deltam=deltam, nstr=nstr, planck=pk, kernels=kernels,
-        sweeps=sweeps,
+    if path == "flux_lane":
+        return solve_rte_flux_lane(
+            dtauc, ssalb_in, pmom, fbeam=fbeam, umu0=umu0, fisot=fisot,
+            albedo=albedo, deltam=deltam, nstr=nstr, planck=pk,
+            kernels=kernels, sweeps=sweeps,
+        )
+    return solve_rte_generic(
+        dtauc, ssalb_in, pmom, nstr=nstr, fbeam=fbeam, umu0=umu0, phi0=phi0,
+        fisot=fisot, albedo=albedo, deltam=deltam, onlyfl=onlyfl, umu=umu,
+        phi=phi, corint=corint, planck=pk, brdf=brdf, kernels=kernels,
+        bvp_method=bvp_method,
     )
+
+
+def solve_rte_generic(dtauc, ssalb_in, pmom, *, nstr, fbeam, umu0, phi0,
+                      fisot, albedo, deltam, onlyfl, umu, phi, corint,
+                      planck=None, brdf=None, kernels=True,
+                      bvp_method="auto") -> RteOutputs:
+    """The generic path (disort.py:181-329).  Inputs batch-major and
+    already broadcast (as in solve_rte, one dtype and device); `planck`
+    the PlanckInputs (None: no thermal source); `kernels` picks the kernel
+    wrappers over their plain versions on the float32 route; `bvp_method`
+    as in solve_rte."""
+    from sbdart_tpu_torch.solver import bvp as bvp_mod
+    from sbdart_tpu_torch.solver.deltam import apply_deltam
+    from sbdart_tpu_torch.solver.eig import (
+        angular_tables,
+        solve_eigen,
+        solve_eigen_beam_fused,
+    )
+    from sbdart_tpu_torch.solver.fields import fluxes
+    from sbdart_tpu_torch.solver.planck import planck_band
+    from sbdart_tpu_torch.solver.sources import (
+        beam_particular,
+        thermal_particular,
+    )
+
+    dtype, device = dtauc.dtype, dtauc.device
+    batch = tuple(dtauc.shape[:-1])
+    nmode = 1 if onlyfl else nstr
+    n = nstr // 2
+    tab = angular_tables(nstr, nmode)
+
+    # ---- optical property scaling (SETDIS) ---------------------------------
+    dm = apply_deltam(dtauc, ssalb_in, pmom, nstr, deltam)
+
+    def tau_levels(dtau):
+        tau = torch.cumsum(dtau, dim=-1)
+        return torch.cat([torch.zeros_like(tau[..., :1]), tau], dim=-1)
+
+    tau_s = tau_levels(dm.dtau)
+    tau_u = tau_levels(dm.dtau_unscaled)
+    has_beam = fbeam > 0.0
+    mu0 = torch.where(has_beam, torch.abs(umu0), 0.5)
+    expbea_s = torch.where(has_beam[..., None],
+                           torch.exp(-tau_s / mu0[..., None]), 0.0)
+    expbea_u = torch.where(has_beam[..., None],
+                           torch.exp(-tau_u / mu0[..., None]), 0.0)
+
+    # ---- homogeneous + particular solutions ------------------------------
+    # float32 flux-mode solves with N even and <= 8: the fused front end
+    # (the eigen chain and the beam solve in one kernel, B4 or B8)
+    if nmode == 1 and n <= 8 and n % 2 == 0 and dtype == torch.float32:
+        eig, beam = solve_eigen_beam_fused(
+            dm.ssalb, dm.gl, fbeam, mu0, tab,
+            need_cppcpm=planck is not None, kernels=kernels)
+    else:
+        eig = solve_eigen(dm.ssalb, dm.gl, tab, kernels=kernels)
+        beam = beam_particular(eig.cpp, eig.cpm, dm.ssalb, dm.gl, fbeam,
+                               mu0, tab)
+
+    thermal = None
+    b_level = None
+    zeros = torch.zeros(batch, dtype=dtype, device=device)
+    top_emission = surf_emission = zeros
+    if planck is not None:
+        b_level = planck_band(planck.wvnlo[..., None],
+                              planck.wvnhi[..., None], planck.temper, dtype)
+        thermal = thermal_particular(
+            eig.cpp[..., 0, :, :, :], eig.cpm[..., 0, :, :, :], dm.ssalb,
+            dm.dtau, b_level, tab)
+        btemp_eff = torch.where(planck.btemp > 0, planck.btemp,
+                                planck.temper[..., -1])
+        ttemp_eff = torch.where(planck.ttemp > 0, planck.ttemp,
+                                planck.temper[..., 0])
+        surf_emission = (1.0 - albedo) * planck_band(
+            planck.wvnlo, planck.wvnhi, btemp_eff, dtype)
+        top_emission = planck.temis * planck_band(
+            planck.wvnlo, planck.wvnhi, ttemp_eff, dtype)
+
+    part = bvp_mod.particular_at_bounds(beam, thermal, expbea_s, dm.dtau,
+                                        nmode)
+
+    # ---- surface operators (SURFAC/BDREF) ----------------------------------
+    mode0_vec = torch.zeros(nmode, dtype=dtype, device=device)
+    mode0_vec[0] = 1.0
+    beam_flux_surf = mu0 * torch.where(has_beam, fbeam, 0.0) * expbea_s[..., -1]
+    if brdf is None:
+        ones_nn = torch.ones((n, n), dtype=dtype, device=device)
+        surf_refl = (2.0 * albedo[..., None, None, None]
+                     * mode0_vec[:, None, None] * ones_nn)   # [..., m, N, N]
+        beam_refl_src = (((albedo / math.pi) * beam_flux_surf)[..., None, None]
+                         * mode0_vec[:, None])               # [..., m, N]
+        surf_emis_vec = surf_emission[..., None].expand(batch + (n,))
+    else:
+        from sbdart_tpu_torch.solver.brdf import (
+            fourier_refl_matrices,
+            hemispherical_reflectance,
+        )
+
+        mu_q = torch.as_tensor(tab.mu, dtype=dtype, device=device)
+        surf_refl = fourier_refl_matrices(brdf, mu_q, mu_q, nmode).expand(
+            batch + (nmode, n, n))
+        r_beam = fourier_refl_matrices(brdf, mu_q, mu0[..., None],
+                                       nmode)[..., :, :, 0]  # [..., m, N]
+        mfac = torch.as_tensor(np.where(np.arange(nmode) == 0, 1.0, 2.0),
+                               dtype=dtype, device=device)
+        beam_refl_src = (r_beam * mfac[:, None] / (2.0 * math.pi)
+                         * beam_flux_surf[..., None, None])
+        if planck is not None:
+            r_dh = hemispherical_reflectance(brdf, mu_q, tab.w, tab.mu)
+            bs = surf_emission / torch.clamp_min(1.0 - albedo, 1e-12)
+            surf_emis_vec = (1.0 - r_dh) * bs[..., None]
+        else:
+            surf_emis_vec = torch.zeros(batch + (n,), dtype=dtype,
+                                        device=device)
+
+    sol = bvp_mod.solve_bvp(eig, part, dm.dtau, surf_refl, fisot,
+                            top_emission, surf_emis_vec, beam_refl_src, tab,
+                            kernels=kernels, method=bvp_method)
+    bounds = bvp_mod.intensity_at_boundaries(eig, sol, part, dm.dtau)
+    fx = fluxes(bounds, tab, fbeam, mu0, expbea_s, expbea_u, ssalb_in,
+                b_level)
+
+    uu = None
+    if not onlyfl and umu is not None:
+        from sbdart_tpu_torch.solver.radiance import compute_radiances
+
+        uu = compute_radiances(
+            eig=eig, sol=sol, beam=beam, thermal=thermal, dm=dm, tau_u=tau_u,
+            ssalb_unscaled=ssalb_in, expbea_s=expbea_s, tab=tab, fbeam=fbeam,
+            mu0=mu0, phi0=phi0, fisot=fisot, albedo=albedo,
+            top_emission=top_emission, surf_emission=surf_emission,
+            bounds=bounds, pmom_unscaled=pmom,
+            umu=np.asarray(umu, np.float64), phi=np.asarray(phi, np.float64),
+            corint=corint, brdf=brdf)
+    return RteOutputs(fx.rfldir, fx.rfldn, fx.flup, fx.dfdt, fx.uavg, uu)

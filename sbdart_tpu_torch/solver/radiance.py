@@ -1,12 +1,15 @@
-"""User-angle radiance helpers of the lane radiance path (torch port of the
-part of sbdart_tpu/solver/radiance.py that solver/radlane.py imports):
-the analytic per-layer path integrals and the Nakajima-Tanaka TMS and IMS
-single-scatter corrections (disort.f:INTCOR/SECSCA).
+"""User-angle radiances (torch port of sbdart_tpu/solver/radiance.py;
+disort.f:USRINT/CMPINT and the Nakajima-Tanaka TMS/IMS corrections of
+INTCOR/SECSCA): the analytic per-layer path integrals, the generic path's
+`compute_radiances`, and the TMS and IMS corrections, which the lane
+radiance path (solver/radlane.py) shares.
 
-The reference's `jax.lax.scan` over layers becomes a Python loop over
-layers on [..., U, P] tensors carrying the same recursion.  User angles
-are static host numbers.  The generic path's `compute_radiances` comes
-with that path (ROADMAP Queue A item 7).
+The DOM solution defines a closed-form source per layer (sums of
+exponentials from the eigenmodes, the beam term, a thermal term linear in
+optical depth), so the radiance at a view cosine u is an exact path
+integral per layer.  The reference's `jax.lax.scan` over layers becomes a
+Python loop over layers carrying the same recursion.  User angles are
+static host numbers.
 """
 
 from __future__ import annotations
@@ -16,7 +19,9 @@ import math
 import numpy as np
 import torch
 
+from sbdart_tpu_torch.constants import slope_tau_floor
 from sbdart_tpu_torch.solver.deltam import DeltaMResult
+from sbdart_tpu_torch.solver.legendre import legendre_assoc_norm
 
 RES_EPS = 1e-5   # resonance half-width for the Taylor switchover
 
@@ -36,6 +41,197 @@ def _int_away(k, delta, u):
     exact = (e_u - torch.exp(-k * delta)) / safe_d
     taylor = e_u * (delta / u) * (1.0 - d * delta / (2.0 * u))
     return torch.where(torch.abs(d) < RES_EPS, taylor, exact)
+
+
+def _recursion(j_lay, e_lay, start, downward: bool):
+    """Radiances at every level [..., L+1, U] of the layer recursion
+    I_next = I e_l + j_l over j_lay/e_lay [..., L, U]: from the top
+    (`downward`) or from the surface, starting at `start` [..., U]."""
+    nlyr = j_lay.shape[-2]
+    e_lay = e_lay.expand(j_lay.shape)
+    carry = start
+    levels = [carry]
+    order = range(nlyr) if downward else range(nlyr - 1, -1, -1)
+    for l in order:
+        carry = carry * e_lay[..., l, :] + j_lay[..., l, :]
+        levels.append(carry)
+    if not downward:
+        levels.reverse()
+    return torch.stack(levels, dim=-2)
+
+
+def compute_radiances(*, eig, sol, beam, thermal, dm: DeltaMResult, tau_u,
+                      ssalb_unscaled, expbea_s, tab, fbeam, mu0, phi0, fisot,
+                      albedo, top_emission, surf_emission, bounds,
+                      pmom_unscaled, umu: np.ndarray, phi: np.ndarray,
+                      corint: bool, brdf=None) -> torch.Tensor:
+    """Radiances uu [..., L+1, U, P] at every layer boundary, for all
+    azimuth modes of the generic path (radiance.py:55-326): the source
+    projections at the user cosines, the per-layer path integrals, the
+    up (from the surface start) and down (from the top illumination)
+    recursions per mode, the azimuth sum, and TMS/IMS when `corint`.
+    `brdf` None is a Lambertian surface of `albedo`."""
+    umu = np.asarray(umu, np.float64)
+    phi = np.asarray(phi, np.float64)
+    if np.any(umu == 0.0):
+        raise ValueError("user view cosines must be nonzero")
+    like = dm.dtau
+    dtype, device = like.dtype, like.device
+
+    def t(x):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    nmode = eig.kk.shape[-3]
+    nstr = tab.ylm.shape[1]
+    w = t(tab.w)
+    parity = t(tab.parity)
+    ylm_u = t(legendre_assoc_norm(umu, nstr, nmode))        # [m, l, U]
+    c = 0.5 * dm.ssalb[..., None] * t(tab.twol1) * dm.gl    # [..., L, l]
+    cm = c[..., None, :, :]                                 # [..., 1, L, l]
+
+    # ---- source-projection moments ----------------------------------------
+    wy = t(tab.ylm) * w[None, None, :]                      # [m, l, i]
+    wyp = parity[:, :, None] * wy
+    chi_dn = (torch.einsum("mli,...mLij->...mLlj", wy, eig.gp)
+              + torch.einsum("mli,...mLij->...mLlj", wyp, eig.gm))
+    chi_up = (torch.einsum("mli,...mLij->...mLlj", wy, eig.gm)
+              + torch.einsum("mli,...mLij->...mLlj", wyp, eig.gp))
+    chi_z = (torch.einsum("mli,...mLi->...mLl", wy, beam.zp)
+             + torch.einsum("mli,...mLi->...mLl", wyp, beam.zm))
+    # source amplitude at the user angles: s = sum_l c_l Lam_l(u) chi_l
+    sd = torch.einsum("...mLl,mlu,...mLlj->...mLuj", cm, ylm_u, chi_dn)
+    su = torch.einsum("...mLl,mlu,...mLlj->...mLuj", cm, ylm_u, chi_up)
+    sz = torch.einsum("...mLl,mlu,...mLl->...mLu", cm, ylm_u, chi_z)
+
+    # direct-beam pseudo source at the user angles
+    from sbdart_tpu_torch.solver.sources import _ylm_at
+
+    ylm0_down = _ylm_at(mu0, nmode, nstr) * parity[:nmode]  # Lam_l^m(-mu0)
+    mfac = t(np.where(np.arange(nmode) == 0, 1.0, 2.0))
+    x0u = torch.einsum("...mLl,mlu,...ml->...mLu", cm, ylm_u, ylm0_down)
+    beam_amp = (torch.where(fbeam > 0, fbeam, 0.0)[..., None, None, None]
+                * (mfac[:, None, None] / (2.0 * math.pi)))
+    sz_tot = sz + x0u * beam_amp                            # [..., m, L, U]
+
+    mode0_vec = torch.zeros(nmode, dtype=dtype, device=device)
+    mode0_vec[0] = 1.0
+    # thermal source at the user angles (mode 0 only): st0 + st1 t'
+    if thermal is not None:
+        chi_y0 = (torch.einsum("li,...Li->...Ll", wy[0], thermal.y0p)
+                  + torch.einsum("li,...Li->...Ll", wyp[0], thermal.y0m))
+        chi_y1 = (torch.einsum("li,...Li->...Ll", wy[0], thermal.y1p)
+                  + torch.einsum("li,...Li->...Ll", wyp[0], thermal.y1m))
+        emis = 1.0 - dm.ssalb
+        b1 = (thermal.b_bot - thermal.b_top) / torch.clamp_min(
+            dm.dtau, slope_tau_floor(dtype))
+        st0_0 = (torch.einsum("...Ll,lu,...Ll->...Lu", c, ylm_u[0], chi_y0)
+                 + (emis * thermal.b_top)[..., None])
+        st1_0 = (torch.einsum("...Ll,lu,...Ll->...Lu", c, ylm_u[0], chi_y1)
+                 + (emis * b1)[..., None])
+        mode_mask = mode0_vec[:, None, None]
+        st0 = mode_mask * st0_0[..., None, :, :]
+        st1 = mode_mask * st1_0[..., None, :, :]
+    else:
+        st0 = torch.zeros(sz_tot.shape, dtype=dtype, device=device)
+        st1 = st0
+
+    kk = eig.kk                                       # [..., m, L, N]
+    dtau_m = dm.dtau[..., None, :, None]              # [..., 1, L, 1]
+    eb_top = expbea_s[..., None, :-1, None]           # [..., 1, L, 1]
+    inv_mu0 = (1.0 / mu0)[..., None, None, None]
+    wmu_j = t(tab.w * tab.mu)
+
+    def layer_source(idx, int_dn, int_up, int_beam, e_lay, slope):
+        return (torch.einsum("...mLj,...mLuj,...mLuj->...mLu", sol.aa,
+                             sd[..., idx, :], int_dn)
+                + torch.einsum("...mLj,...mLuj,...mLuj->...mLu", sol.bb,
+                               su[..., idx, :], int_up)
+                + sz_tot[..., idx] * eb_top * int_beam
+                + st0[..., idx] * (1.0 - e_lay) + st1[..., idx] * slope)
+
+    def surface_start(u):
+        """The upward recursion's start [..., m, U]: the reflected
+        downwelling field and direct beam, and the surface emission."""
+        fdir_bot = mu0 * torch.where(fbeam > 0, fbeam, 0.0) * expbea_s[..., -1]
+        if brdf is None:
+            fdn_bot = 2.0 * torch.einsum("j,...j->...", wmu_j,
+                                         bounds.dn[..., 0, -1, :])
+            i_surf0 = surf_emission + albedo * (fdir_bot / math.pi + fdn_bot)
+            return (i_surf0[..., None, None] * mode0_vec[:, None]
+                    * torch.ones_like(u))
+        from sbdart_tpu_torch.solver.brdf import (
+            fourier_refl_matrices,
+            hemispherical_reflectance,
+        )
+
+        r_user = fourier_refl_matrices(brdf, u, t(tab.mu), nmode)  # [m, U, N]
+        refl_diff = torch.einsum("muj,j,...mj->...mu", r_user, wmu_j,
+                                 bounds.dn[..., -1, :])
+        r_b = fourier_refl_matrices(brdf, u, mu0[..., None],
+                                    nmode)[..., :, :, 0]           # [..., m, U]
+        refl_beam = (r_b * mfac[:, None] / (2.0 * math.pi)
+                     * fdir_bot[..., None, None])
+        r_dh_u = hemispherical_reflectance(brdf, u, tab.w, tab.mu)
+        bs = surf_emission / torch.clamp_min(1.0 - albedo, 1e-12)
+        emis = (1.0 - r_dh_u) * bs[..., None, None] * mode0_vec[:, None]
+        return refl_diff + refl_beam + emis
+
+    up_idx = np.where(umu > 0)[0]
+    dn_idx = np.where(umu < 0)[0]
+    numu = len(umu)
+    batchm = torch.broadcast_shapes(sd.shape[:-4], sz_tot.shape[:-3])
+    out_parts = torch.zeros(batchm + (nmode, dm.dtau.shape[-1] + 1, numu),
+                            dtype=dtype, device=device)
+    if len(up_idx):
+        # bottom -> top for the positive cosines
+        u = t(umu[up_idx])
+        ub = u[None, :, None]
+        e_lay = torch.exp(-dtau_m / u[None, :])       # [..., 1, L, U]
+        j_lay = layer_source(
+            up_idx,
+            _int_toward(kk[..., None, :], dtau_m[..., None], ub),
+            _int_away(kk[..., None, :], dtau_m[..., None], ub),
+            _int_toward(inv_mu0[..., None], dtau_m[..., None], ub)[..., 0],
+            e_lay, u[None, :] - (dtau_m + u[None, :]) * e_lay)
+        out_parts[..., up_idx] = _recursion(j_lay, e_lay, surface_start(u),
+                                            downward=False).expand(
+            batchm + (nmode, dm.dtau.shape[-1] + 1, len(up_idx)))
+    if len(dn_idx):
+        # top -> bottom for the negative cosines
+        ua = t(np.abs(umu[dn_idx]))
+        ub = ua[None, :, None]
+        e_lay = torch.exp(-dtau_m / ua[None, :])
+        j_lay = layer_source(
+            dn_idx,
+            _int_away(kk[..., None, :], dtau_m[..., None], ub),
+            _int_toward(kk[..., None, :], dtau_m[..., None], ub),
+            # the beam along the path: the resonance-safe 'away' integral
+            # with k = 1/mu0
+            _int_away(inv_mu0[..., None], dtau_m[..., None], ub)[..., 0],
+            e_lay, dtau_m - ua[None, :] * (1.0 - e_lay))
+        i_top = ((fisot + top_emission)[..., None, None] * mode0_vec[:, None]
+                 * torch.ones_like(ua))
+        out_parts[..., dn_idx] = _recursion(j_lay, e_lay, i_top,
+                                            downward=True).expand(
+            batchm + (nmode, dm.dtau.shape[-1] + 1, len(dn_idx)))
+
+    # ---- azimuth assembly ------------------------------------------------
+    phi_r = t(np.deg2rad(phi))                              # [P]
+    marange = torch.arange(nmode, dtype=dtype, device=device)
+    cosm = torch.cos(marange[:, None]
+                     * (torch.deg2rad(phi0)[..., None, None] - phi_r))
+    uu = torch.einsum("...mvu,...mp->...vup", out_parts, cosm)
+
+    if corint:
+        uu = uu + _tms_correction(
+            dm=dm, pmom_unscaled=pmom_unscaled, expbea_s=expbea_s,
+            fbeam=fbeam, mu0=mu0, phi0=phi0, umu=umu, phi=phi, nstr=nstr)
+        if np.any(umu < 0):
+            uu = uu - _ims_correction(
+                dm=dm, pmom_unscaled=pmom_unscaled,
+                ssalb_unscaled=ssalb_unscaled, tau_u=tau_u, fbeam=fbeam,
+                mu0=mu0, phi0=phi0, umu=umu, phi=phi, nstr=nstr)
+    return uu
 
 
 def _legendre_at(x: torch.Tensor, nmom: int) -> torch.Tensor:

@@ -29,11 +29,11 @@ import torch
 
 from sbdart_tpu.pallas.eig import eig_beam_chain_lane_fused_layered
 from sbdart_tpu_torch.kernels.eig_beam import (
-    SWEEPS_F64,
-    _round_robin_pairs,
     eig_beam_chain,
     eig_beam_chain_plain,
 )
+from sbdart_tpu_torch.kernels.eig_chain import SWEEPS_F64
+from sbdart_tpu_torch.ops.lane import _round_robin_pairs
 from sbdart_tpu_torch.solver.deltam import apply_deltam
 from sbdart_tpu_torch.solver.eig import angular_tables
 from sbdart_tpu_torch.solver.fluxlane import beam_rows, general_operands

@@ -1,21 +1,39 @@
-"""What the port does not run yet raises NotImplementedError naming the
-ROADMAP slice that brings it, instead of computing something else: the
-reference's generic path (Queue A item 7) serves stream counts whose
-N = nstr/2 is odd or above 8, flux-only solves on a BRDF surface and
-radiances without user angles, thermal or not."""
+"""Requests the lane paths do not take run on the generic path and match
+the reference (float64, CPU): stream counts whose N = nstr/2 is odd or
+above 8, flux-only solves on a BRDF surface, and all-mode solves with or
+without user angles, thermal or not.  The one request the port refuses
+is float32 on a CUDA device with N > 8 (`route`/`unsupported`, named
+below); ibcnd=1 is a later slice.
+
+The reference runs under one jax.jit (tests/test_torch_generic.py:
+ref_solve); the bar is 1e-9 of each field's max (measured <= 6e-15).
+"""
 
 import numpy as np
 import pytest
 import torch
 
+from sbdart_tpu.config import Config as RefConfig
+from sbdart_tpu.pipeline import run_pipeline as ref_run_pipeline
+from sbdart_tpu.solver.brdf import HapkeBrdf
+from sbdart_tpu.solver.brdf import RpvBrdf as RefRpvBrdf
 from sbdart_tpu_torch import cli
 from sbdart_tpu_torch.config import Config
 from sbdart_tpu_torch.pipeline import run_albtrn, run_pipeline
-from sbdart_tpu_torch.solver.disort import solve_rte
+from sbdart_tpu_torch.solver.disort import route, solve_rte, unsupported
+from test_torch_generic import ref_solve, worst
+from test_torch_radlane import port
 
 DTAU = np.full((2, 4), 0.1)
 SSALB = np.full((2, 4), 0.5)
-PMOM = 0.5 ** np.arange(5) * np.ones((2, 4, 5))
+
+
+def pmom(nstr):
+    """HG-like moments, at least nstr + 1 of them (TMS reads them all)."""
+    return 0.5 ** np.arange(max(5, nstr + 1)) * np.ones((2, 4, 1))
+
+
+PMOM = pmom(4)
 
 
 THERMAL = dict(planck=True, temper=np.full((2, 5), 280.0), wvnlo=800.0,
@@ -23,32 +41,66 @@ THERMAL = dict(planck=True, temper=np.full((2, 5), 280.0), wvnlo=800.0,
 UMU = dict(umu=np.array([0.5]))
 RADIANCE = dict(onlyfl=False, umu=np.array([0.5]), phi=np.array([0.0]))
 
+REQUESTS = {
+    "nstr6": dict(nstr=6),                             # odd N
+    "nstr32": dict(nstr=32),                           # N > 8
+    "all_modes": dict(onlyfl=False),                   # no umu, no phi
+    "thermal_radiance_umu": dict(THERMAL, onlyfl=False, **UMU),
+    "hapke_flux": dict(brdf=HapkeBrdf()),              # flux-only BRDF
+    "rpv_flux": dict(brdf=RefRpvBrdf()),
+    "nstr6_radiance": dict(nstr=6, **RADIANCE),        # odd N
+    "nstr2": dict(nstr=2),                             # odd N
+    "nstr20_radiance": dict(nstr=20, **RADIANCE),      # N > 8
+    "all_modes_phi_only": dict(onlyfl=False, phi=np.array([0.0])),
+    "thermal_all_modes": dict(THERMAL, onlyfl=False),  # no umu, no phi
+}
 
-@pytest.mark.parametrize("kw,slice_name", [
-    (dict(nstr=6), "Queue A item 7"),
-    (dict(nstr=32), "Queue A item 7"),
-    (dict(onlyfl=False), "radiance"),
-    (dict(THERMAL, onlyfl=False, **UMU), "radiance slice"),
-    (dict(brdf=object()), "BRDF"),
-])
-def test_solve_rte_refuses_other_slices(kw, slice_name):
-    kw = dict(dict(nstr=4, fbeam=1.0, umu0=0.5, albedo=0.1), **kw)
-    with pytest.raises(NotImplementedError, match=slice_name):
-        solve_rte(DTAU, SSALB, PMOM, dtype=torch.float64, **kw)
+
+@pytest.mark.parametrize("name", list(REQUESTS))
+def test_generic_requests_run_and_match_reference(name):
+    kw = dict(dict(nstr=4, fbeam=1.0, umu0=0.5, albedo=0.1), **REQUESTS[name])
+    args = (DTAU, SSALB, pmom(kw["nstr"]))
+    if kw.get("umu") is not None and kw.get("phi") is None:
+        # user cosines without azimuths: the reference fails on them, the
+        # port says what is missing; with one azimuth both run
+        with pytest.raises(ValueError, match="phi"):
+            port(args, kw, torch.float64)
+        kw["phi"] = np.array([0.0])
+    got = port(args, kw, torch.float64)
+    errs = worst(got, ref_solve(args, kw, np.float64))
+    assert max(errs.values()) <= 1e-9, errs
+    if kw.get("umu") is not None:
+        assert got.uu.shape == (2, 5, 1, 1)
+    else:
+        assert got.uu is None
 
 
-@pytest.mark.parametrize("kw", [
-    dict(brdf=object()),                               # flux-only BRDF
-    dict(nstr=6, **RADIANCE),                          # odd N
-    dict(nstr=2),                                      # odd N
-    dict(nstr=20, **RADIANCE),                         # N > 8
-    dict(onlyfl=False, phi=np.array([0.0])),           # radiance, no umu
-    dict(THERMAL, onlyfl=False),                       # no umu, no phi
-])
-def test_generic_path_requests_name_item_7(kw):
-    kw = dict(dict(nstr=4, fbeam=1.0, umu0=0.5, albedo=0.1), **kw)
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        solve_rte(DTAU, SSALB, PMOM, dtype=torch.float64, **kw)
+def test_route_names_each_request():
+    """The path of each request, and the one refusal (float32 on a CUDA
+    device with N > 8), decided without running anything."""
+    hapke = object()
+    for kw, path in [
+        (dict(nstr=4, onlyfl=True, brdf=None), "flux_lane"),
+        (dict(nstr=16, onlyfl=True, brdf=None), "flux_lane"),
+        (dict(nstr=8, onlyfl=False, brdf=hapke, umu=[0.5], phi=[0.0]),
+         "radiance_lane"),
+        (dict(nstr=6, onlyfl=True, brdf=None), "generic"),
+        (dict(nstr=2, onlyfl=True, brdf=None), "generic"),
+        (dict(nstr=20, onlyfl=True, brdf=None), "generic"),
+        (dict(nstr=8, onlyfl=True, brdf=hapke), "generic"),
+        (dict(nstr=16, onlyfl=False, brdf=None), "generic"),
+        (dict(nstr=4, onlyfl=False, brdf=None, phi=[0.0]), "generic"),
+        (dict(nstr=10, onlyfl=False, brdf=None, umu=[0.5], phi=[0.0]),
+         "generic"),
+    ]:
+        assert route(**kw) == path, kw
+    for nstr, dtype, device in [(16, torch.float32, "cuda"),
+                                (14, torch.float32, "cuda"),
+                                (18, torch.float64, "cuda"),
+                                (32, torch.float32, "cpu")]:
+        assert unsupported(nstr=nstr, dtype=dtype, device=device) is None
+    why = unsupported(nstr=18, dtype=torch.float32, device="cuda")
+    assert "B5/B6 beyond N = 8" in why
 
 
 def test_radiance_solves_run():
@@ -64,26 +116,36 @@ def test_radiance_solves_run():
         assert bool(torch.isfinite(out.uu).all())
 
 
-def test_pipeline_refuses_thermal_samples():
-    """Thermal samples run with fluxes and with radiances (iout=20); a
-    radiance run at a stream count of the generic path (nstr=6: N odd)
-    is refused, thermal samples or not."""
-    cfg = Config(idatm=2, wlinf=1.9, wlsup=2.1, wlinc=0.05, nstr=6, iout=20,
-                 nzen=1, uzen=[0.0, 0, 0, 0, 0]).validate()
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        run_pipeline(cfg, device="cpu")
+PIPELINES = {
+    # thermal samples (1.9-2.1 um crosses the 2 um switch) with radiances
+    # at nstr=6 (N odd)
+    "thermal_nstr6_radiance": [dict(idatm=2, wlinf=1.9, wlsup=2.1,
+                                    wlinc=0.05, nstr=6, iout=20, nzen=1,
+                                    uzen=[0.0, 0, 0, 0, 0])],
+    # radiances at nstr 6 and 32, fluxes at nstr 32
+    "radiance_and_nstr32": [
+        dict(idatm=2, wlinf=0.5, wlsup=0.6, wlinc=0.05, nstr=nstr,
+             iout=iout, nzen=1, uzen=[0.0, 0, 0, 0, 0])
+        for nstr, iout in ((6, 20), (32, 20), (32, 10))],
+}
 
 
-def test_pipeline_refuses_radiance_and_nstr16():
-    """Radiance runs at nstr 4, 8 and 16 are served (tests/
-    test_torch_goldens.py); stream counts of the generic path are
-    refused, with radiances (iout=20) or without."""
-    for nstr, iout in ((6, 20), (32, 20), (32, 10)):
-        cfg = Config(idatm=2, wlinf=0.5, wlsup=0.6, wlinc=0.05, nstr=nstr,
-                     iout=iout, nzen=1,
-                     uzen=[0.0, 0, 0, 0, 0]).validate()
-        with pytest.raises(NotImplementedError, match="Queue A item 7"):
-            run_pipeline(cfg, device="cpu")
+@pytest.mark.parametrize("name", list(PIPELINES))
+def test_pipeline_generic_requests_match_reference(name):
+    """run_pipeline on the stream counts of the generic path, against the
+    reference's float64 pipeline (chunks of 3 wavelengths: the grids hold
+    3 to 5)."""
+    for cfg in PIPELINES[name]:
+        ref = ref_run_pipeline(RefConfig(**cfg).validate(), chunk=3)
+        got = run_pipeline(Config(**cfg).validate(), chunk=3,
+                           dtype=torch.float64, device="cpu")
+        names = ("fdir", "fdn", "fup", "dfdt", "uavg")
+        names += ("uu",) if cfg["iout"] == 20 else ()
+        for field in names:
+            a, b = getattr(got, field), np.asarray(getattr(ref, field))
+            assert a.shape == b.shape and np.isfinite(a).all(), field
+            err = np.abs(a - b).max() / np.abs(b).max()
+            assert err < 1e-7, (cfg["nstr"], field, err)
 
 
 def test_ibcnd1_refused_by_albtrn_and_cli(tmp_path):

@@ -297,3 +297,151 @@ def test_kernels_refuse_float64_on_card(cuda_device):
     with pytest.raises(TypeError, match="float32"):
         eig_beam_chain_n2(*(x[None].double() for x in (cppl, cpml, r1, r2)),
                           mu0.double(), tab)
+
+
+def _generic(nstr, nbc, nlyr, device, **kw):
+    import chip_smoke
+
+    return chip_smoke.generic_kernel_operands(*chip_smoke.generic_problem(
+        nbc, 1, nlyr, device, nstr=nstr, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nstr", [4, 8, 12, 16])
+@pytest.mark.parametrize("lanes", [None, 130])
+def test_eig_chain_kernel_matches_plain(cuda_device, nstr, lanes):
+    """B9 on the generic path's all-mode operands (nstr modes x 9 layers x
+    64 columns: N = 2, 4, 6, 8) and on their first 130 lanes."""
+    from sbdart_tpu_torch.kernels.eig_chain import (
+        eig_chain, eig_chain_plain)
+
+    (cppl, cpml, mu, w), _ = _generic(nstr, 64, 9, cuda_device,
+                                      onlyfl=False)["eig_chain_lane"]
+    ops = tuple(x[None, ..., :lanes].contiguous() for x in (cppl, cpml))
+    before = eig_chain.launches
+    got = eig_chain(*ops, mu, w)
+    torch.cuda.synchronize()
+    assert eig_chain.launches == before + 1
+    for name, g, w_ in zip(NAMES, got, eig_chain_plain(*ops, mu, w)):
+        _assert_close(g, w_, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nstr", [2, 4, 6, 8, 10, 12, 14, 16])
+@pytest.mark.parametrize("cols", [None, 130])
+def test_block_thomas_kernel_matches_plain(cuda_device, nstr, cols):
+    """B10 on the blocks solver/bvp.py:assemble_blocks builds from the
+    generic path's all-mode BVP (m = nstr = 2 .. 16, 9 layers, 130
+    band-columns x nstr modes), and on the first 130 columns."""
+    from sbdart_tpu_torch.kernels.blocktri import (
+        block_thomas, block_thomas_plain)
+    from sbdart_tpu_torch.solver.bvp import assemble_blocks
+
+    (gp, gm, ee, refl, rhs), _ = _generic(nstr, 130, 9, cuda_device,
+                                          onlyfl=False)["solve_bvp"]
+    # a float32 beam solve at an exact resonance (k = 1/mu0, the 0.5 dither
+    # of a column without beam) leaves a column's rhs non-finite, on the
+    # reference's route too (ROADMAP Queue C): hold only finite columns
+    keep = torch.isfinite(rhs).all(dim=0).all(dim=0)
+    ops = tuple(x[..., keep][..., :cols].contiguous()
+                for x in (*assemble_blocks(gp, gm, ee, refl), rhs))
+    before = block_thomas.launches
+    got = block_thomas(*ops)
+    torch.cuda.synchronize()
+    assert block_thomas.launches == before + 1
+    _assert_close(got, block_thomas_plain(*ops), "xs")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nstr", [2, 6, 10, 14])
+@pytest.mark.parametrize("cols", [None, 130])
+def test_bvp_kernels_at_odd_n_match_plain(cuda_device, nstr, cols):
+    """B5 and B6 at odd N = 1, 3, 5, 7 on the generic path's flux BVP
+    (9 layers, 640 band-columns) and on its first 130 columns."""
+    from sbdart_tpu_torch.kernels.blocktri_rt import (
+        block_thomas_rt, block_thomas_rt_plain)
+    from sbdart_tpu_torch.kernels.blocktri_rt_streamed import (
+        block_thomas_rt_bwd, block_thomas_rt_bwd_plain, block_thomas_rt_fwd,
+        block_thomas_rt_fwd_plain)
+
+    bvp, _ = _generic(nstr, 640, 9, cuda_device, onlyfl=True)["solve_bvp"]
+    ops = tuple(x[..., :cols].contiguous() for x in bvp)
+    before = (block_thomas_rt.launches, block_thomas_rt_fwd.launches,
+              block_thomas_rt_bwd.launches)
+    got = block_thomas_rt(*ops)
+    cs, ys = block_thomas_rt_fwd(*ops)
+    cs_p, ys_p = block_thomas_rt_fwd_plain(*ops)
+    xs = block_thomas_rt_bwd(*ops[:3], cs_p, ys_p)
+    torch.cuda.synchronize()
+    assert (block_thomas_rt.launches, block_thomas_rt_fwd.launches,
+            block_thomas_rt_bwd.launches) == tuple(b + 1 for b in before)
+    _assert_close(got, block_thomas_rt_plain(*ops), "xs (B5)")
+    _assert_close(cs, cs_p, "cs")
+    _assert_close(ys, ys_p, "ys")
+    _assert_close(xs, block_thomas_rt_bwd_plain(*ops[:3], cs_p, ys_p), "xs")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nstr,kw,kernel,bvp", [
+    (6, dict(onlyfl=True, planck=True), "block_thomas_rt", "auto"),
+    (10, dict(onlyfl=False, angles=True), "block_thomas_rt", "auto"),
+    (8, dict(onlyfl=False), "eig_chain", "auto"),
+    (4, dict(onlyfl=False), "eig_chain", "auto"),
+    (8, dict(onlyfl=True, brdf=True), "eig_beam_chain", "auto"),
+    (8, dict(onlyfl=False), "block_thomas", "scan"),
+])
+def test_generic_solve_kernels_match_plain(cuda_device, nstr, kw, kernel,
+                                           bvp):
+    """solve_rte on the generic path in float32 through the kernels
+    against its plain path on the card, 130 band-columns x 9 layers:
+    every field within chip_smoke's 5e-4 of its max, and the named
+    kernel launched (B10 on the bvp_method="scan" route)."""
+    import importlib
+
+    import chip_smoke
+    from sbdart_tpu_torch.solver.disort import solve_rte
+
+    module = {"block_thomas_rt": "blocktri_rt", "eig_chain": "eig_chain",
+              "eig_beam_chain": "eig_beam", "block_thomas": "blocktri"}[kernel]
+    wrapper = getattr(importlib.import_module(
+        f"sbdart_tpu_torch.kernels.{module}"), kernel)
+    args, kw = chip_smoke.generic_problem(130, 1, 9, cuda_device, nstr=nstr,
+                                          **kw)
+    before = wrapper.launches
+    got = solve_rte(*args, dtype=torch.float32, bvp_method=bvp, **kw)
+    want = solve_rte(*args, dtype=torch.float32, eig_method="plain",
+                     bvp_method=bvp, **kw)
+    assert wrapper.launches > before
+    for name in ("uu", "rfldir", "rfldn", "flup", "uavg", "dfdt"):
+        g, w = getattr(got, name), getattr(want, name)
+        if w is None:
+            assert g is None, name
+            continue
+        assert torch.isfinite(g).all(), name
+        err = float((g - w).abs().max() / w.abs().max().clamp_min(1e-9))
+        assert err <= chip_smoke.E2E_BAR, (name, err)
+
+
+@pytest.mark.cuda
+def test_generic_kernels_refuse_float64_and_n_above_8(cuda_device):
+    from sbdart_tpu_torch.kernels.blocktri import block_thomas
+    from sbdart_tpu_torch.kernels.eig_chain import eig_chain
+    from sbdart_tpu_torch.solver.bvp import assemble_blocks
+    from sbdart_tpu_torch.solver.disort import solve_rte
+
+    ops = _generic(8, 13, 5, cuda_device, onlyfl=False)
+    (cppl, cpml, mu, w), _ = ops["eig_chain_lane"]
+    with pytest.raises(TypeError, match="float32"):
+        eig_chain(cppl[None].double(), cpml[None].double(), mu, w)
+    (gp, gm, ee, refl, rhs), _ = ops["solve_bvp"]
+    blocks = (*assemble_blocks(gp, gm, ee, refl), rhs)
+    with pytest.raises(TypeError, match="float32"):
+        block_thomas(*(x.double() for x in blocks))
+    import chip_smoke
+
+    args, kw = chip_smoke.generic_problem(13, 1, 5, cuda_device, nstr=18,
+                                          onlyfl=True)
+    with pytest.raises(NotImplementedError, match="B5/B6 beyond N = 8"):
+        solve_rte(*args, dtype=torch.float32, **kw)
+    out = solve_rte(*args, dtype=torch.float64, **kw)
+    assert torch.isfinite(out.flup).all()
