@@ -10,8 +10,9 @@ Phases, one JSON line each; the first failure exits non-zero:
   1. device   the card's name and power limit (nvidia-smi);
   2. build    nvcc builds the CUDA kernels from kernels/csrc/ (timed);
   3. kernel   each kernel against its plain torch version on the card at
-              the main path's shapes, bar rtol 1e-4 / atol 1e-5 on every
-              element of every output, with both device times
+              the main path's shapes, bar equality on every element of
+              every output (NaN where the plain version has NaN), with
+              both device times
               (torch.profiler), both wall times (CUDA events) and the
               bound (the larger of bytes over 3.35 TB/s and operations
               over 67 TFLOP/s): B1/B2 at 33 layers x 49152 columns, B3
@@ -27,7 +28,17 @@ Phases, one JSON line each; the first failure exits non-zero:
               (eigen chain) on the all-mode lanes of G1 (N = 8), G2
               (N = 4) and G3 (N = 2), B10 (block-Thomas on assembled
               blocks) on G2's BVP (m = 8), B5/B6 at odd N on G4's (N = 3)
-              and G5's (N = 5) BVP; each also at 130 columns or lanes;
+              and G5's (N = 5) BVP; B6 forward's group kernel beside its
+              one-thread kernel wherever that runs (N = 8, 4, 2, 3, 5), and
+              both designs where the reference streams at N = 2 (480
+              layers x 49152 columns) and N = 3 (250 x 12288), the shapes
+              the wrapper's rule by N is read at; the
+              group kernels past N = 8 on the generic path's flux BVP with
+              a NaN injected in one column's right-hand side: B6 forward
+              and backward at N = 10 (G7's, 65 layers x 6144) and N = 16
+              (65 x 6144), B10 on G7's assembled blocks (m = 20), B5 at
+              N = 9 (G8's, 33 x 6144) and N = 20 (6 x 6144); each also at
+              130 columns or lanes;
   4. solve    solve_rte in float32 through the kernels against the plain
               path on the card (max-abs error / max-abs <= 5e-4), with
               band-columns/s for both, and the kernel path's device time
@@ -49,6 +60,13 @@ Phases, one JSON line each; the first failure exits non-zero:
               N = 5, compute_radiances); G6 nstr=8 x 33 x 2048, fluxes on a
               Hapke BRDF (B4 flat, B5); and G2 again with
               bvp_method="scan", the assembled-block route (B9, B10);
+              past N = 8, with rel_err 0.0 on every field: G7 nstr=20 x 65
+              x 2048, fluxes (the lane eigen chain at N = 10, B6's group
+              kernels); G8 nstr=18 x 33 x 2048, fluxes (B5's group kernel
+              at N = 9), and again with bvp_method="scan" (B10's group
+              kernel at m = 18); G9 nstr=32 x 65 x 256, radiances at the
+              5 x 3 view grid (B6's group kernels at N = 16,
+              compute_radiances);
   5. cli      the sbdart CLI on BASELINE config 1 (Lambertian closure
               botup/botdn = albcon to 1e-5), config 2 (tropical LW, 4-40 um,
               nstr=4: OLR finite, positive, and within 1e-2 of the float64
@@ -58,12 +76,14 @@ Phases, one JSON line each; the first failure exits non-zero:
               radiances at 6 zenith x 3 azimuth angles, iout=20: uu finite,
               >= -1e-9 on the float64 route, the float32 route within
               1e-2 of it, the mean TOA radiance above the same run's
-              without aerosol), and config 4's namelist at nstr=10 (the
-              generic path) under the same checks.
+              without aerosol), and config 4's namelist at nstr=10 and at
+              nstr=32 (the generic path; B6's group kernels at N = 16)
+              under the same checks.
 
 Kernel launch counters are zeroed just before each run of phases 4 and
 5 and read just after it: each kernel must have been launched by the runs
-whose path holds it.  Then come the kernels summary, the nvidia-smi line,
+whose path holds it.  Then come the run's seconds (in all, the kernel
+phase, each main-path phase), the kernels summary, the nvidia-smi line,
 and as the last line {"ok": true, "device": {...}}.  Without a CUDA
 device the script fails.
 """
@@ -88,7 +108,7 @@ NLYR = 33
 NBC = 16384            # band-columns
 NK = 3                 # k-terms per band-column
 B = NBC * NK           # columns the kernels see
-RTOL, ATOL = 1e-4, 1e-5        # kernel vs plain (tests/test_pallas_kernels.py:142)
+KERNEL_BAR = "equal"           # kernel vs plain: every element, NaN positions too
 E2E_BAR = 5e-4                 # solve vs plain path (tests/test_pallas_kernels.py:364-368)
 INPUT_C1 = """ &INPUT
    idatm=2, wlinf=0.25, wlsup=2.0, wlinc=0.005,
@@ -445,6 +465,13 @@ def generic_kernel_operands(args, kw):
     return seen
 
 
+# each group-per-column kernel and the one-thread kernel whose work it does
+GROUP_OF = {"blocktri_rt_fwd_group": "blocktri_rt_fwd",
+            "blocktri_rt_bwd_group": "blocktri_rt_bwd",
+            "blocktri_rt_group": "blocktri_rt",
+            "block_thomas_group": "block_thomas"}
+
+
 def _ge_flops(m, r):
     """Operations of a pivoted elimination of an m x m system with r
     right-hand sides, back-substitution included."""
@@ -457,6 +484,7 @@ def flops_of(kname, args):
     kernel is bound by its bytes except where noted in PERF.md)."""
     from sbdart_tpu_torch.kernels.eig_beam import SWEEPS_F32
 
+    kname = GROUP_OF.get(kname, kname)
     if kname in ("eig_n2_deltam", "eig_n2_scatter"):
         lanes = args[0].numel()
         return (250 if kname == "eig_n2_deltam" else 230) * lanes
@@ -484,14 +512,16 @@ def flops_of(kname, args):
     m = 2 * n
     per = {
         "blocktri_rt_n2": _ge_flops(m, m + 1) + 2 * n * m * (m + 1)
-        + 4 * n**3 + 2 * m * m,
+        + 2 * m * m,
         "blocktri_rt": _ge_flops(m, m + 1) + 2 * n * m * (m + 1)
-        + 4 * n**3 + 2 * m * m,
-        "blocktri_rt_fwd": _ge_flops(m, n + 1) + 4 * n * m * n + 2 * n * m
-        + 4 * n**3,
+        + 2 * m * m,
+        "blocktri_rt_fwd": _ge_flops(m, n + 1) + 4 * n * m * n + 2 * n * m,
         "blocktri_rt_bwd": 4 * n * m + m,
     }[kname]
-    return nlyr * b * per
+    # the surface rows' R [gm e, gp] (4 N^3) count on the last layer only,
+    # the one where the plain versions' factor `last` is not 0
+    surface = 0 if kname == "blocktri_rt_bwd" else 4 * n**3
+    return b * (nlyr * per + surface)
 
 
 def bound_of(kname, args, outs):
@@ -514,21 +544,30 @@ def bound_of(kname, args, outs):
 
 
 def compare(name, got, want):
-    """Worst error and bar misses of one output plane."""
+    """Worst error and misses of one output plane against its plain
+    version.  The bar is equality: the kernels follow their plain versions'
+    operation order with --fmad=false, so every element must be the plain
+    version's, NaN where it has NaN (a NaN column is the float32 beam
+    resonance of ROADMAP Queue C, or one injected on purpose)."""
     import torch
 
     if got.shape != want.shape:
         raise SmokeFailure(f"{name}: shape {tuple(got.shape)} != "
                            f"{tuple(want.shape)}")
-    if not bool(torch.isfinite(got).all()):
-        raise SmokeFailure(f"{name}: kernel output not finite")
-    diff = (got.double() - want.double()).abs()
-    miss = diff > ATOL + RTOL * want.double().abs()
+    nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+    if not bool(torch.isfinite(got[~nan_g]).all()):
+        raise SmokeFailure(f"{name}: kernel output infinite")
+    if not torch.equal(nan_g, nan_w):
+        raise SmokeFailure(f"{name}: NaN at {int(nan_g.sum())} elements, "
+                           f"the plain version at {int(nan_w.sum())}")
+    diff = (got.double() - want.double()).abs()[~nan_w]
+    miss = diff > 0.0
     return {
         "output": name,
-        "max_abs_err": float(diff.max()),
+        "max_abs_err": float(diff.max()) if diff.numel() else 0.0,
         "misses": int(miss.sum()),
         "miss_max_abs": float(diff[miss].max()) if bool(miss.any()) else 0.0,
+        "nan": int(nan_g.sum()),
         "elements": got.numel(),
     }
 
@@ -626,31 +665,40 @@ def phase_kernels(device, reps):
             fold(summary, row, main=b == B)
             rows.append(row)
         emit({"phase": "kernel", "layers": NLYR, "columns": b,
-              "bar": {"rtol": RTOL, "atol": ATOL}, "results": rows})
+              "bar": KERNEL_BAR, "results": rows})
     return summary
 
 
 def bvp_calls(bvp, hist):
-    """The check_kernel calls of B5 and B6 (forward; backward on the plain
-    forward's history `hist`) on one BVP's operands."""
+    """The check_kernel calls of B5 and B6 (forward, both designs where
+    both are built: the one-thread kernel at the N of FWD_ONE_THREAD_N;
+    backward on the plain forward's history `hist`) on one BVP's
+    operands."""
     from sbdart_tpu_torch.kernels.blocktri_rt import (
         block_thomas_rt, block_thomas_rt_plain)
     from sbdart_tpu_torch.kernels.blocktri_rt_streamed import (
-        block_thomas_rt_bwd, block_thomas_rt_bwd_plain, block_thomas_rt_fwd,
+        FWD_ONE_THREAD_N, block_thomas_rt_bwd, block_thomas_rt_bwd_plain,
+        block_thomas_rt_fwd, block_thomas_rt_fwd_group,
         block_thomas_rt_fwd_plain)
 
-    return {
+    calls = {
         "blocktri_rt": (
             ("xs",), lambda: block_thomas_rt(*bvp),
             lambda: block_thomas_rt_plain(*bvp), 2, bvp),
         "blocktri_rt_fwd": (
             ("cs", "ys"), lambda: block_thomas_rt_fwd(*bvp),
             lambda: block_thomas_rt_fwd_plain(*bvp), 2, bvp),
+        "blocktri_rt_fwd_group": (
+            ("cs", "ys"), lambda: block_thomas_rt_fwd_group(*bvp),
+            lambda: block_thomas_rt_fwd_plain(*bvp), 2, bvp),
         "blocktri_rt_bwd": (
             ("xs",), lambda: block_thomas_rt_bwd(*bvp[:3], *hist),
             lambda: block_thomas_rt_bwd_plain(*bvp[:3], *hist), 3,
             bvp[:3] + tuple(hist)),
     }
+    if bvp[0].shape[1] not in FWD_ONE_THREAD_N:
+        del calls["blocktri_rt_fwd"]
+    return calls
 
 
 def phase_kernels_general(device, reps):
@@ -671,7 +719,8 @@ def phase_kernels_general(device, reps):
     # the nstr whose shape gives each kernel's times in the summary: one
     # where the main path runs it
     summary_nstr = {"eig_n2_scatter": 4, "eig_beam": 16, "blocktri_rt": 8,
-                    "blocktri_rt_fwd": 16, "blocktri_rt_bwd": 16}
+                    "blocktri_rt_fwd": None, "blocktri_rt_fwd_group": 16,
+                    "blocktri_rt_bwd": 16}
     for nstr, nlyr, nbc in cases:
         for cols, nk in ((nbc, NK), (130, 1)):
             prob = flux_problem(cols, nk, nlyr, device, nmom=nstr + 1,
@@ -700,12 +749,14 @@ def phase_kernels_general(device, reps):
                     time_kernel(row, kern, plain, reps, plain_reps)
                 row["on_main_path"] = (
                     kname in ("eig_beam", "eig_n2_scatter")
-                    or (kname != "blocktri_rt") == streams)
+                    or (kname == "blocktri_rt" and not streams)
+                    or (kname in ("blocktri_rt_fwd_group", "blocktri_rt_bwd")
+                        and streams))
                 fold(summary, row,
                      main=summary_nstr[kname] == nstr and cols == nbc)
                 rows.append(row)
             emit({"phase": "kernel", "nstr": nstr, "layers": nlyr,
-                  "columns": b, "bar": {"rtol": RTOL, "atol": ATOL},
+                  "columns": b, "bar": KERNEL_BAR,
                   "results": rows})
     return summary
 
@@ -757,7 +808,7 @@ def phase_kernels_radiance(device, reps):
                                 reps, reps)
                 fold(summary, row, main=cols != 130)
                 emit({"phase": "kernel", "path": "radiance", "nstr": nstr,
-                      "lanes": cols, "bar": {"rtol": RTOL, "atol": ATOL},
+                      "lanes": cols, "bar": KERNEL_BAR,
                       "results": [row]})
         rows = []
         for kname, (names, kern, plain, plain_reps, args) in calls.items():
@@ -769,7 +820,7 @@ def phase_kernels_radiance(device, reps):
         if rows:
             emit({"phase": "kernel", "path": "radiance", "nstr": nstr,
                   "layers": nlyr, "band_columns": nbc,
-                  "bar": {"rtol": RTOL, "atol": ATOL}, "results": rows})
+                  "bar": KERNEL_BAR, "results": rows})
     return summary
 
 
@@ -791,10 +842,52 @@ def phase_kernels_bvp_n2(device, reps):
             row = check_kernel(kname, names, kern, plain, b, args)
             if nbc == NBC:
                 time_kernel(row, kern, plain, reps, plain_reps)
-            fold(summary, row, main=False)
             rows.append(row)
         emit({"phase": "kernel", "nstr": 4, "layers": 65, "columns": b,
-              "bar": {"rtol": RTOL, "atol": ATOL}, "results": rows})
+              "bar": KERNEL_BAR, "results": rows})
+    return summary
+
+
+def phase_kernels_fwd_rule(device, reps):
+    """B6 forward's two designs at N = 2 and 3 on columns the reference
+    streams (`reference_route`: N = 2 from 473 layers, N = 3 from 241), the
+    shapes FWD_ONE_THREAD_N is read at: N = 2 at 480 layers x 49152
+    columns (the nstr=4 flux cell's), N = 3 at 250 layers x 12288 (G4's),
+    each against the plain version."""
+    import torch
+
+    from sbdart_tpu_torch.kernels.blocktri_rt_streamed import (
+        FWD_ONE_THREAD_N, block_thomas_rt_fwd, block_thomas_rt_fwd_group,
+        block_thomas_rt_fwd_plain, reference_route)
+
+    summary = {}
+    for n, nlyr in ((2, 480), (3, 250)):
+        if n == 2:
+            _, _, _, bvp = kernel_operands(flux_problem(NBC, NK, nlyr, device))
+        else:
+            bvp, _ = generic_kernel_operands(*generic_problem(
+                4096, NK, nlyr, device, nstr=6, onlyfl=True,
+                planck=True))["solve_bvp"]
+        bvp = tuple(x.contiguous() for x in bvp)
+        if reference_route(nlyr, n) != "streamed":
+            raise SmokeFailure(f"N = {n} at {nlyr} layers is not B6's shape")
+        rows = []
+        for kname, kern in (("blocktri_rt_fwd", block_thomas_rt_fwd),
+                            ("blocktri_rt_fwd_group",
+                             block_thomas_rt_fwd_group)):
+            row = check_kernel(kname, ("cs", "ys"), lambda k=kern: k(*bvp),
+                               lambda: block_thomas_rt_fwd_plain(*bvp),
+                               bvp[0].shape[-1], bvp)
+            time_kernel(row, lambda k=kern: k(*bvp),
+                        lambda: block_thomas_rt_fwd_plain(*bvp), reps, 1)
+            # the one-thread design stands in the summary at N = 2
+            fold(summary, row, main=n == 2 and kname == "blocktri_rt_fwd")
+            rows.append(row)
+        emit({"phase": "kernel", "path": "fwd_rule", "n": n, "layers": nlyr,
+              "columns": bvp[0].shape[-1], "one_thread": n in FWD_ONE_THREAD_N,
+              "bar": KERNEL_BAR, "results": rows})
+        del bvp, rows
+        torch.cuda.empty_cache()
     return summary
 
 
@@ -807,6 +900,9 @@ GENERIC = {
     "G4": (6, 4096, NLYR, dict(onlyfl=True, planck=True)),
     "G5": (10, NBC_RAD16, NLYR, dict(onlyfl=False, angles=True)),
     "G6": (8, NBC16, NLYR, dict(onlyfl=True, brdf=True)),
+    "G7": (20, NBC16, NLYR16, dict(onlyfl=True)),
+    "G8": (18, NBC16, NLYR, dict(onlyfl=True)),
+    "G9": (32, NBC_RAD16, NLYR16, dict(onlyfl=False, angles=True)),
 }
 
 
@@ -884,17 +980,104 @@ def phase_kernels_generic(device, reps):
             fold(summary, row, main=cols != 130 and main.get(kname) == name)
             rows.append(row)
         emit({"phase": "kernel", "path": "generic", "shape": name,
-              "bar": {"rtol": RTOL, "atol": ATOL}, "results": rows})
+              "bar": KERNEL_BAR, "results": rows})
         del calls, rows
         torch.cuda.empty_cache()
     return summary
 
 
-def phase_generic(device, reps, name, bvp_method="auto"):
+def with_nan(ops):
+    """A copy of BVP operands (..., rhs) with a NaN in one column's
+    right-hand side, layer 1 (the float32 beam resonance's pattern)."""
+    rhs = ops[-1].clone()
+    rhs[min(1, rhs.shape[0] - 1), 0, rhs.shape[-1] // 2] = float("nan")
+    return tuple(ops[:-1]) + (rhs,)
+
+
+# the group kernels' shapes past N = 8: (name, nstr, band-columns,
+# layers); x 3 k-terms, fluxes, so the BVP has 3 x band-columns columns
+GROUP_SHAPES = [("G7", 20, NBC16, NLYR16), ("N16", 32, NBC16, NLYR16),
+                ("G8", 18, NBC16, NLYR), ("N20", 40, NBC16, 6)]
+
+
+def phase_kernels_group(device, reps):
+    """The group-per-column kernels past N = 8 against their plain versions
+    on the generic path's BVP operands, each at the shape's columns with a
+    NaN injected in one column's right-hand side, and at 130 columns: B6
+    forward and backward at N = 10 (G7: 65 layers x 6144) and N = 16 (65 x
+    6144), B10 on G7's assembled blocks (m = 20), B5 at N = 9 (G8: 33 x
+    6144) and N = 20 (6 x 6144, the reference's B5 limit there)."""
+    import torch
+
+    from sbdart_tpu_torch.kernels.blocktri import (
+        block_thomas_group, block_thomas_plain)
+    from sbdart_tpu_torch.kernels.blocktri_rt import (
+        block_thomas_rt_group, block_thomas_rt_plain)
+    from sbdart_tpu_torch.kernels.blocktri_rt_streamed import (
+        block_thomas_rt_bwd_group, block_thomas_rt_bwd_plain,
+        block_thomas_rt_fwd_group, block_thomas_rt_fwd_plain)
+    from sbdart_tpu_torch.solver.bvp import assemble_blocks
+
+    summary = {}
+    # the shape whose times stand in the kernels summary (B6 forward's is
+    # N = 8, in phase_kernels_general)
+    main = {"blocktri_rt_bwd_group": "G7", "block_thomas_group": "G7",
+            "blocktri_rt_group": "G8"}
+    for name, nstr, nbc, nlyr in GROUP_SHAPES:
+        bvp, _ = generic_kernel_operands(*generic_problem(
+            nbc, NK, nlyr, device, nstr=nstr, onlyfl=True))["solve_bvp"]
+        calls = {}
+        for cols in (bvp[0].shape[-1], 130):
+            sl = tuple(x[..., :cols].contiguous() for x in bvp)
+            if cols != 130:
+                sl = with_nan(sl)
+            if nlyr == NLYR16:
+                hist = block_thomas_rt_fwd_plain(*sl)
+                calls[("blocktri_rt_fwd_group", cols)] = (
+                    ("cs", "ys"), lambda sl=sl: block_thomas_rt_fwd_group(*sl),
+                    lambda sl=sl: block_thomas_rt_fwd_plain(*sl), 2, sl)
+                calls[("blocktri_rt_bwd_group", cols)] = (
+                    ("xs",),
+                    lambda sl=sl, h=hist: block_thomas_rt_bwd_group(*sl[:3],
+                                                                    *h),
+                    lambda sl=sl, h=hist: block_thomas_rt_bwd_plain(*sl[:3],
+                                                                    *h),
+                    2, sl[:3] + tuple(hist))
+            else:
+                calls[("blocktri_rt_group", cols)] = (
+                    ("xs",), lambda sl=sl: block_thomas_rt_group(*sl),
+                    lambda sl=sl: block_thomas_rt_plain(*sl), 2, sl)
+            if name == "G7":
+                blocks = tuple(x.contiguous() for x in
+                               (*assemble_blocks(*sl[:4]), sl[4]))
+                calls[("block_thomas_group", cols)] = (
+                    ("xs",), lambda b=blocks: block_thomas_group(*b),
+                    lambda b=blocks: block_thomas_plain(*b), 2, blocks)
+        del bvp
+        rows = []
+        for (kname, cols), (names, kern, plain, plain_reps, args) in \
+                calls.items():
+            row = check_kernel(kname, names, kern, plain, cols, args)
+            row.update(shape=name, columns=cols, layers=nlyr,
+                       m=int(args[0].shape[1]) * (
+                           1 if kname == "block_thomas_group" else 2))
+            if cols != 130:
+                time_kernel(row, kern, plain, reps, plain_reps)
+            fold(summary, row, main=cols != 130 and main.get(kname) == name)
+            rows.append(row)
+        emit({"phase": "kernel", "path": "group", "shape": name,
+              "nstr": nstr, "bar": KERNEL_BAR, "results": rows})
+        del calls, rows
+        torch.cuda.empty_cache()
+    return summary
+
+
+def phase_generic(device, reps, name, bvp_method="auto", bar=E2E_BAR):
     """solve_rte on the generic path in float32 through the kernels
     against its plain path on the card, at one of GENERIC's shapes: the
-    fluxes (and uu where asked) within 5e-4 of each field's max, timed.
-    `bvp_method` "scan" takes the assembled-block route (B10)."""
+    fluxes (and uu where asked) within `bar` of each field's max (0.0: the
+    same numbers), timed.  `bvp_method` "scan" takes the assembled-block
+    route (B10)."""
     import torch
 
     from sbdart_tpu_torch.solver.disort import route, solve_rte
@@ -926,9 +1109,12 @@ def phase_generic(device, reps, name, bvp_method="auto"):
     if ("umu" in kw) != (out_k.uu is not None):
         raise SmokeFailure(f"{name}: uu {out_k.uu is not None}")
     worst = max(errs[f] for f in fields)
-    k_ms = timed_ms(lambda: run("auto"), reps)
-    p_ms = timed_ms(lambda: run("plain"), 2, warmup=0)
-    dev = device_breakdown(lambda: run("auto"), max(2, reps // 2))
+    # reps = 1 (the solves past N = 8, seconds each): the runs above were
+    # the warm-up, one timed run of each path, one profiled
+    k_ms = timed_ms(lambda: run("auto"), reps, warmup=2 if reps > 1 else 0)
+    p_ms = timed_ms(lambda: run("plain"), min(2, reps), warmup=0)
+    dev = device_breakdown(lambda: run("auto"),
+                           max(2, reps // 2) if reps > 1 else 1)
     busy_ms = dev["device_busy_ms"]
     rec = {"phase": "solve", "kind": "generic", "cell": name,
            "bvp_method": bvp_method, "nstr": nstr,
@@ -936,7 +1122,7 @@ def phase_generic(device, reps, name, bvp_method="auto"):
            "planck": bool(kw.get("planck")),
            "brdf": "hapke" if "brdf" in kw else None,
            "band_columns": nbc, "k_terms": NK, "layers": nlyr,
-           "dtype": "float32", "rel_err": errs, "bar": E2E_BAR,
+           "dtype": "float32", "rel_err": errs, "bar": bar,
            "kernel_path_ms": k_ms, "plain_path_ms": p_ms,
            "kernel_path_bc_per_s": nbc / (k_ms / 1e3),
            "plain_path_bc_per_s": nbc / (p_ms / 1e3),
@@ -947,9 +1133,9 @@ def phase_generic(device, reps, name, bvp_method="auto"):
            "kernel_path_glue_device_ms": dev["glue_device_ms"],
            "kernel_path_device_ops": dev["device_ops_per_solve"]}
     emit(rec)
-    if worst > E2E_BAR:
+    if worst > bar:
         raise SmokeFailure(f"{name}: kernel vs plain path {worst:.3g} > "
-                           f"{E2E_BAR}")
+                           f"{bar}")
     return rec
 
 
@@ -1273,6 +1459,24 @@ KERNELS = {   # name: (wrapper module, wrapper, source, the TPU kernel,
     "block_thomas": ("blocktri", "block_thomas", "block_thomas.cu",
                      "sbdart_tpu/pallas/blocktri.py:93",
                      "block_thomas_kernel"),
+    "blocktri_rt_fwd_group": ("blocktri_rt_streamed",
+                              "block_thomas_rt_fwd_group",
+                              "blocktri_rt_streamed_group.cu",
+                              "sbdart_tpu/pallas/blocktri.py:373",
+                              "blocktri_rt_fwd_group_kernel"),
+    "blocktri_rt_bwd_group": ("blocktri_rt_streamed",
+                              "block_thomas_rt_bwd_group",
+                              "blocktri_rt_streamed_group.cu",
+                              "sbdart_tpu/pallas/blocktri.py:457",
+                              "blocktri_rt_bwd_group_kernel"),
+    "blocktri_rt_group": ("blocktri_rt", "block_thomas_rt_group",
+                          "blocktri_rt_group.cu",
+                          "sbdart_tpu/pallas/blocktri.py:269",
+                          "blocktri_rt_group_kernel"),
+    "block_thomas_group": ("blocktri", "block_thomas_group",
+                           "block_thomas.cu",
+                           "sbdart_tpu/pallas/blocktri.py:93",
+                           "block_thomas_group_kernel"),
 }
 
 
@@ -1281,6 +1485,7 @@ def main() -> int:
 
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SmokeFailure("no CUDA device: this script runs the port on "
                            "the card and has no CPU mode")
@@ -1307,12 +1512,16 @@ def main() -> int:
     emit({"phase": "build", "seconds": build_s, "library": path.name,
           "ptxas": ptxas})
 
+    t0 = time.perf_counter()
     summary = phase_kernels(device, reps=20)
     for part in (phase_kernels_general(device, reps=20),
                  phase_kernels_radiance(device, reps=20),
                  phase_kernels_bvp_n2(device, reps=10),
-                 phase_kernels_generic(device, reps=10)):
+                 phase_kernels_fwd_rule(device, reps=5),
+                 phase_kernels_generic(device, reps=10),
+                 phase_kernels_group(device, reps=5)):
         merge(summary, part)
+    t_kernels = time.perf_counter() - t0
 
     wrappers = {
         k: getattr(importlib.import_module(f"sbdart_tpu_torch.kernels.{m}"), f)
@@ -1323,7 +1532,7 @@ def main() -> int:
          ("eig_n2_deltam", "blocktri_rt_n2")),
         (lambda: phase_solve(device, reps=10, nstr=16, nbc=NBC16,
                              nlyr=NLYR16),
-         ("eig_beam", "blocktri_rt_fwd", "blocktri_rt_bwd")),
+         ("eig_beam", "blocktri_rt_fwd_group", "blocktri_rt_bwd")),
         (lambda: phase_solve(device, reps=10, planck=True),
          ("eig_n2_scatter", "blocktri_rt_n2")),
         (lambda: phase_solve(device, reps=10, nlyr=65),
@@ -1333,10 +1542,10 @@ def main() -> int:
          ("eig_n2_planar", "blocktri_rt_n2", "radsrc")),
         (lambda: phase_radiance(device, reps=10, nstr=16, nbc=NBC_RAD16,
                                 nlyr=NLYR16),
-         ("eig_beam", "blocktri_rt_fwd", "blocktri_rt_bwd", "radsrc")),
+         ("eig_beam", "blocktri_rt_fwd_group", "blocktri_rt_bwd", "radsrc")),
         (lambda: phase_radiance(device, reps=5, nstr=16, nbc=NBC16,
                                 nlyr=NLYR16),
-         ("eig_beam", "blocktri_rt_fwd", "blocktri_rt_bwd", "radsrc")),
+         ("eig_beam", "blocktri_rt_fwd_group", "blocktri_rt_bwd", "radsrc")),
         (lambda: phase_radiance(device, reps=10, nstr=8, nbc=512,
                                 nlyr=NLYR, planck=True, brdf=True),
          ("eig_beam", "blocktri_rt", "radsrc")),
@@ -1345,7 +1554,7 @@ def main() -> int:
         (phase_cli_config3, ("eig_beam", "blocktri_rt")),
         (phase_cli_config4, ("eig_beam", "blocktri_rt", "radsrc")),
         (lambda: phase_generic(device, 3, "G1"),
-         ("eig_chain", "blocktri_rt_fwd", "blocktri_rt_bwd")),
+         ("eig_chain", "blocktri_rt_fwd_group", "blocktri_rt_bwd")),
         (lambda: phase_generic(device, 5, "G2"), ("eig_chain", "blocktri_rt")),
         (lambda: phase_generic(device, 5, "G2", bvp_method="scan"),
          ("eig_chain", "block_thomas")),
@@ -1355,12 +1564,25 @@ def main() -> int:
         (lambda: phase_generic(device, 5, "G5"), ("blocktri_rt",)),
         (lambda: phase_generic(device, 5, "G6"), ("eig_beam", "blocktri_rt")),
         (lambda: phase_cli_config4(nstr=10), ("blocktri_rt",)),
+        (lambda: phase_generic(device, 1, "G7", bar=0.0),
+         ("blocktri_rt_fwd_group", "blocktri_rt_bwd_group")),
+        (lambda: phase_generic(device, 1, "G8", bar=0.0),
+         ("blocktri_rt_group",)),
+        (lambda: phase_generic(device, 1, "G8", bvp_method="scan", bar=0.0),
+         ("block_thomas_group",)),
+        (lambda: phase_generic(device, 1, "G9", bar=0.0),
+         ("blocktri_rt_fwd_group", "blocktri_rt_bwd_group")),
+        (lambda: phase_cli_config4(nstr=32),
+         ("blocktri_rt_fwd_group", "blocktri_rt_bwd_group")),
     ]
     launches = dict.fromkeys(KERNELS, 0)
+    walls = []
     for phase, owned in owners:
         for fn in wrappers.values():
             fn.launches = 0
+        t0 = time.perf_counter()
         rec = phase()
+        walls.append(round(time.perf_counter() - t0, 1))
         counts = {k: fn.launches for k, fn in wrappers.items()}
         missed = [k for k in owned if counts[k] == 0]
         if missed:
@@ -1369,6 +1591,8 @@ def main() -> int:
         for k, c in counts.items():
             launches[k] += c
 
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start,
+          "kernel_phase_seconds": t_kernels, "main_path_phase_seconds": walls})
     emit({"kernels": [
         {"name": k, "route": "cuda",
          "source": f"sbdart_tpu_torch/kernels/csrc/{KERNELS[k][2]}",

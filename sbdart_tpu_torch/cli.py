@@ -4,7 +4,9 @@ Like the reference binary: reads the namelist file `INPUT` from the working
 directory (or a path given as argv[1]), runs, prints the `iout` output to
 stdout.  Optional data files (atms.dat, albedo.dat, aerosol.dat, filter.dat,
 solar.dat, usrcld.dat) are picked up from the working directory exactly as
-the reference does.  Runs on the CUDA device when one is present.
+the reference does.  Runs on the CUDA card; to run on the CPU (in
+float64), set SBDART_TPU_DEVICE=cpu.  Without a card and without that
+request it fails and says so.
 
 Usage:
     python -m sbdart_tpu_torch.cli [INPUT_PATH]

@@ -6,6 +6,9 @@ Mirrors sbdart_tpu/dtypes.py for PyTorch:
   - CUDA runs: float32, the precision the hand-written kernels take,
   - overridable via `SBDART_TPU_DTYPE=float32|float64` or per call.
 
+The device is the CUDA card unless the caller asks for the CPU, per call
+(`device="cpu"`) or with `SBDART_TPU_DEVICE=cpu` (`default_device`).
+
 The solver's small-matrix algebra cancels to ~1e-5 of the operand scale,
 so reduced-precision matmul passes (TF32 keeps ~3 decimal digits) break
 its accuracy budget, as bf16 passes did on the TPU
@@ -32,12 +35,25 @@ def parse_dtype(name) -> torch.dtype:
         return name
     key = str(name).removeprefix("torch.")
     if key not in _DTYPES:
-        raise ValueError(f"unsupported dtype {name!r}: use float32 or float64")
+        raise ValueError(f"dtype {name!r}: use float32 or float64")
     return _DTYPES[key]
 
 
 def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The device a call runs on when it names none: the CUDA card, or the
+    CPU where the caller asks for it with `SBDART_TPU_DEVICE=cpu` (the
+    counterpart of the JAX package's `JAX_PLATFORMS=cpu`).  Without a card
+    and without that request it raises: the port never falls back to the
+    CPU on its own."""
+    env = os.environ.get("SBDART_TPU_DEVICE")
+    if env:
+        return torch.device(env)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "sbdart_tpu_torch: no CUDA device.  To run on the CPU, pass "
+            "device='cpu' or set SBDART_TPU_DEVICE=cpu"
+        )
+    return torch.device("cuda")
 
 
 def on_cuda(device=None) -> bool:

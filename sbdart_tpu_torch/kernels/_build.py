@@ -28,10 +28,11 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("eig_n2_deltam.cu", "eig_n2_scatter.cu", "eig_n2_planar.cu",
            "eig_beam.cu", "eig_chain.cu", "blocktri_rt_n2.cu",
-           "blocktri_rt.cu", "blocktri_rt_odd.cu", "blocktri_rt_streamed.cu",
-           "blocktri_rt_streamed_odd.cu", "block_thomas.cu", "radsrc.cu")
+           "blocktri_rt.cu", "blocktri_rt_odd.cu", "blocktri_rt_group.cu",
+           "blocktri_rt_streamed.cu", "blocktri_rt_streamed_odd.cu",
+           "blocktri_rt_streamed_group.cu", "block_thomas.cu", "radsrc.cu")
 HEADERS = ("eig_n2_chain.cuh", "eig_chain.cuh", "solve_step.cuh",
-           "blocktri_rt.cuh", "blocktri_rt_streamed.cuh")
+           "group_solve.cuh", "blocktri_rt.cuh", "blocktri_rt_streamed.cuh")
 # IEEE sqrt/div/exp (no --use_fast_math) and no contracted multiply-adds:
 # the kernels round where their plain torch versions do.
 NVCC_FLAGS = (
@@ -134,9 +135,44 @@ def library() -> ctypes.CDLL:
     lib.sbdart_blocktri_rt_fwd.restype = _I
     lib.sbdart_blocktri_rt_bwd.argtypes = [_P] * 6 + [_I, _I, _I, _P]
     lib.sbdart_blocktri_rt_bwd.restype = _I
+    lib.sbdart_blocktri_rt_fwd_group.argtypes = [_P] * 7 + [_I, _I, _I, _P]
+    lib.sbdart_blocktri_rt_fwd_group.restype = _I
+    lib.sbdart_blocktri_rt_bwd_group.argtypes = [_P] * 6 + [_I, _I, _I, _P]
+    lib.sbdart_blocktri_rt_bwd_group.restype = _I
+    lib.sbdart_blocktri_rt_group.argtypes = [_P] * 8 + [_I, _I, _I, _P]
+    lib.sbdart_blocktri_rt_group.restype = _I
+    lib.sbdart_block_thomas_group.argtypes = [_P] * 7 + [_I, _I, _I, _P]
+    lib.sbdart_block_thomas_group.restype = _I
+    lib.sbdart_blocktri_rt_streamed_group_bytes.argtypes = [_I, _I]
+    lib.sbdart_blocktri_rt_streamed_group_bytes.restype = _I
+    lib.sbdart_blocktri_rt_group_bytes.argtypes = [_I]
+    lib.sbdart_blocktri_rt_group_bytes.restype = _I
+    lib.sbdart_block_thomas_group_bytes.argtypes = [_I]
+    lib.sbdart_block_thomas_group_bytes.restype = _I
     lib.sbdart_cuda_error_string.argtypes = [_I]
     lib.sbdart_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def require_shared_memory(name: str, column_bytes, size: int, device,
+                          what: str = "N") -> None:
+    """A group kernel holds one column's system in shared memory: raise a
+    ValueError naming the card's opt-in limit where `column_bytes(size)`
+    exceeds it, and the largest size that fits."""
+    import torch
+
+    limit = torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin
+    need = column_bytes(size)
+    if need <= limit:
+        return
+    top = size
+    while top > 1 and column_bytes(top) > limit:
+        top -= 1
+    raise ValueError(
+        f"{name}: one column's system at {what} = {size} takes {need} bytes "
+        f"of shared memory, above the card's opt-in limit of {limit} bytes "
+        f"a block; the kernel takes {what} up to {top}")
 
 
 def check(code: int, what: str) -> None:

@@ -11,8 +11,10 @@ column with the full W history:
 
 with kernels/blocktri_rt.py:solve_step (the reference's _solve_step:
 first-max implicit pivoting, shrinking elimination).  `block_thomas`
-launches the CUDA kernel csrc/block_thomas.cu on CUDA tensors and runs
-`block_thomas_plain` on CPU tensors.  The reference pads the columns with
+launches a CUDA kernel of csrc/block_thomas.cu on CUDA tensors (one thread
+per column at m = 2..16; past that `block_thomas_group`, a group of lanes
+per column on the elimination core) and runs `block_thomas_plain` on CPU
+tensors.  The reference pads the columns with
 identity blocks and refuses shapes beyond its VMEM; neither is a limit
 here.  Returns xs [L, m, B].
 """
@@ -47,39 +49,65 @@ def block_thomas_plain(diag, lower, upper, rhs):
     return torch.stack(xs, dim=0)
 
 
-def block_thomas(diag, lower, upper, rhs):
-    """B10: the CUDA kernel on CUDA tensors (float32 only, m = 2, 4, ...,
-    16), the plain torch version on CPU tensors."""
-    if diag.device.type == "cpu":
-        return block_thomas_plain(diag, lower, upper, rhs)
+def _launch(name, entry, diag, lower, upper, rhs):
+    """Check the operands and launch one of B10's two kernels; xs."""
     from sbdart_tpu_torch.kernels import _build
 
     nlyr, m, _, b = diag.shape
-    if m not in range(2, 17, 2):
-        raise ValueError(f"block_thomas: the kernel takes m = 2, 4, ..., 16, "
-                         f"got {m}")
     want = {"diag": (nlyr, m, m, b), "lower": (nlyr, m, m, b),
             "upper": (nlyr, m, m, b), "rhs": (nlyr, m, b)}
-    for name, t in zip(want, (diag, lower, upper, rhs)):
-        if tuple(t.shape) != want[name]:
-            raise ValueError(f"block_thomas: {name} has shape "
-                             f"{tuple(t.shape)}, expected {want[name]}")
+    for key, t in zip(want, (diag, lower, upper, rhs)):
+        if tuple(t.shape) != want[key]:
+            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
+                             f"expected {want[key]}")
     ins = [t.contiguous() for t in (diag, lower, upper, rhs)]
-    _build.require_cuda_f32("block_thomas", *ins)
+    _build.require_cuda_f32(name, *ins)
+    lib = _build.library()
+    if entry == "sbdart_block_thomas_group":
+        _build.require_shared_memory(name, lib.sbdart_block_thomas_group_bytes,
+                                     m, diag.device, what="m")
     new = dict(device=diag.device, dtype=torch.float32)
     ws = torch.empty((nlyr, m * m, b), **new)          # W history scratch
     ys = torch.empty((nlyr, m, b), **new)
     xs = torch.empty((nlyr, m, b), **new)
-    lib = _build.library()
     with torch.cuda.device(diag.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.sbdart_block_thomas(
+        code = getattr(lib, entry)(
             *(t.data_ptr() for t in ins), ws.data_ptr(), ys.data_ptr(),
             xs.data_ptr(), nlyr, m, b, stream,
         )
+    _build.check(code, name)
+    return xs
+
+
+def block_thomas(diag, lower, upper, rhs):
+    """B10: the one-thread-per-column CUDA kernel on CUDA tensors at
+    m = 2, 4, ..., 16 (float32 only), `block_thomas_group` at every other
+    m, the plain torch version on CPU tensors."""
+    if diag.device.type == "cpu":
+        return block_thomas_plain(diag, lower, upper, rhs)
+    if diag.shape[1] not in range(2, 17, 2):
+        return block_thomas_group(diag, lower, upper, rhs)
+    xs = _launch("block_thomas", "sbdart_block_thomas", diag, lower, upper,
+                 rhs)
     block_thomas.launches += 1
-    _build.check(code, "block_thomas")
+    return xs
+
+
+def block_thomas_group(diag, lower, upper, rhs):
+    """B10 on a group of lanes per column, any m >= 1 (the CUDA kernel
+    block_thomas_group_kernel of csrc/block_thomas.cu on CUDA tensors,
+    float32 only; the plain torch version on CPU tensors)."""
+    if diag.device.type == "cpu":
+        return block_thomas_plain(diag, lower, upper, rhs)
+    if diag.shape[1] < 1:
+        raise ValueError(f"block_thomas_group: the kernel takes m >= 1, got "
+                         f"{diag.shape[1]}")
+    xs = _launch("block_thomas_group", "sbdart_block_thomas_group", diag,
+                 lower, upper, rhs)
+    block_thomas_group.launches += 1
     return xs
 
 
 block_thomas.launches = 0
+block_thomas_group.launches = 0

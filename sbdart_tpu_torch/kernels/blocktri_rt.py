@@ -1,5 +1,7 @@
-"""B5: fused SETMTX + SOLVE0 for general n (N = 1 to 8: nstr 2 to 16),
-block-Thomas over layers with the full W history.
+"""B5: fused SETMTX + SOLVE0 for general n, block-Thomas over layers with
+the full W history: one thread per column at N = 1 to 8 (nstr 2 to 16,
+csrc/blocktri_rt.cuh), a group of lanes per column past that
+(csrc/blocktri_rt_group.cu, on the elimination core group_solve.cuh).
 
 Port of sbdart_tpu/pallas/blocktri.py:_rt_kernel (reached via
 block_thomas_rt for n >= 4, and at n = 2 where its planar tile does not
@@ -114,40 +116,69 @@ def block_thomas_rt_plain(gp, gm, ee, refl, rhs):
     return torch.stack(xs, dim=0)
 
 
-def block_thomas_rt(gp, gm, ee, refl, rhs):
-    """B5 solve: the CUDA kernel on CUDA tensors (float32 only), the plain
-    torch version on CPU tensors.  Shapes as in the module doc."""
-    if gp.device.type == "cpu":
-        return block_thomas_rt_plain(gp, gm, ee, refl, rhs)
+def _launch(name, entry, gp, gm, ee, refl, rhs):
+    """Check the operands and launch one of B5's two kernels; xs."""
     from sbdart_tpu_torch.kernels import _build
 
     nlyr, n, _, b = gp.shape
-    if not 1 <= n <= 8:
-        raise ValueError(f"block_thomas_rt: the kernel takes N = 1 to 8, "
-                         f"got {n}")
     want = {"gp": (nlyr, n, n, b), "gm": (nlyr, n, n, b), "ee": (nlyr, n, b),
             "refl": (n, n, b), "rhs": (nlyr, 2 * n, b)}
-    for name, t in zip(want, (gp, gm, ee, refl, rhs)):
-        if tuple(t.shape) != want[name]:
-            raise ValueError(f"block_thomas_rt: {name} has shape "
-                             f"{tuple(t.shape)}, expected {want[name]}")
+    for key, t in zip(want, (gp, gm, ee, refl, rhs)):
+        if tuple(t.shape) != want[key]:
+            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
+                             f"expected {want[key]}")
     ins = [t.contiguous() for t in (gp, gm, ee, refl, rhs)]
-    _build.require_cuda_f32("block_thomas_rt", *ins)
+    _build.require_cuda_f32(name, *ins)
+    lib = _build.library()
+    if entry == "sbdart_blocktri_rt_group":
+        _build.require_shared_memory(name, lib.sbdart_blocktri_rt_group_bytes,
+                                     n, gp.device)
     m = 2 * n
     new = dict(device=gp.device, dtype=torch.float32)
     ws = torch.empty((nlyr, m * m, b), **new)          # W history scratch
     ys = torch.empty((nlyr, m, b), **new)
     xs = torch.empty((nlyr, m, b), **new)
-    lib = _build.library()
     with torch.cuda.device(gp.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.sbdart_blocktri_rt(
+        code = getattr(lib, entry)(
             *(t.data_ptr() for t in ins), ws.data_ptr(), ys.data_ptr(),
             xs.data_ptr(), nlyr, n, b, stream,
         )
+    _build.check(code, name)
+    return xs
+
+
+def block_thomas_rt(gp, gm, ee, refl, rhs):
+    """B5 solve: the one-thread-per-column CUDA kernel on CUDA tensors at
+    N = 1 to 8 (float32 only), `block_thomas_rt_group` past N = 8, the
+    plain torch version on CPU tensors.  Shapes as in the module doc."""
+    if gp.device.type == "cpu":
+        return block_thomas_rt_plain(gp, gm, ee, refl, rhs)
+    n = gp.shape[1]
+    if n > 8:
+        return block_thomas_rt_group(gp, gm, ee, refl, rhs)
+    if n < 1:
+        raise ValueError(f"block_thomas_rt: the kernel takes N >= 1, got {n}")
+    xs = _launch("block_thomas_rt", "sbdart_blocktri_rt", gp, gm, ee, refl,
+                 rhs)
     block_thomas_rt.launches += 1
-    _build.check(code, "block_thomas_rt")
+    return xs
+
+
+def block_thomas_rt_group(gp, gm, ee, refl, rhs):
+    """B5 on a group of lanes per column, any N (the CUDA kernel of
+    csrc/blocktri_rt_group.cu on CUDA tensors, float32 only; the plain
+    torch version on CPU tensors)."""
+    if gp.device.type == "cpu":
+        return block_thomas_rt_plain(gp, gm, ee, refl, rhs)
+    if gp.shape[1] < 1:
+        raise ValueError(f"block_thomas_rt_group: the kernel takes N >= 1, "
+                         f"got {gp.shape[1]}")
+    xs = _launch("block_thomas_rt_group", "sbdart_blocktri_rt_group", gp, gm,
+                 ee, refl, rhs)
+    block_thomas_rt_group.launches += 1
     return xs
 
 
 block_thomas_rt.launches = 0
+block_thomas_rt_group.launches = 0

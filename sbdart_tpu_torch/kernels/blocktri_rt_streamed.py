@@ -1,6 +1,6 @@
-"""B6: fused SETMTX + SOLVE0 for general n with the rank-N factor history
-(N = 1 to 8), as a forward kernel and a backward kernel, and the routing
-of every boundary-value solve.
+"""B6: fused SETMTX + SOLVE0 for general n with the rank-N factor history,
+as a forward kernel and a backward kernel, and the routing of every
+boundary-value solve.
 
 Port of sbdart_tpu/pallas/blocktri.py:_rt_fwd_chunk_kernel and
 _rt_bwd_chunk_kernel, which its block_thomas_rt runs instead of _rt_kernel
@@ -23,11 +23,16 @@ reference picks at each shape.  The TPU version chunks the layers to fit
 VMEM and pads them with identity layers; neither changes a real layer's
 value, and neither is kept.
 
-`block_thomas_rt_fwd` and `block_thomas_rt_bwd` launch the CUDA kernels of
-csrc/blocktri_rt_streamed.cu on CUDA tensors and run their plain versions
-on CPU tensors.  Inputs gp/gm [L, N, N, B], ee [L, N, B], refl [N, N, B],
-rhs [L, 2N, B]; the history is cs [L, 2N, N, B] and ys [L, 2N, B]; the
-solution xs [L, 2N, B].
+`block_thomas_rt_fwd` and `block_thomas_rt_bwd` launch CUDA kernels on
+CUDA tensors and run their plain versions on CPU tensors.  Two designs:
+one thread per column (csrc/blocktri_rt_streamed.cuh, templated on N) and
+a group of lanes per column on the elimination core
+(csrc/blocktri_rt_streamed_group.cu, N a run-time argument, up to the N
+whose system fills the card's shared memory).  The forward kernel's design
+by N is `FWD_ONE_THREAD_N`; the backward kernel is the one-thread one to
+N = 8 and `block_thomas_rt_bwd_group` past it.  Inputs gp/gm [L, N, N, B],
+ee [L, N, B], refl [N, N, B], rhs [L, 2N, B]; the history is cs
+[L, 2N, N, B] and ys [L, 2N, B]; the solution xs [L, 2N, B].
 """
 
 from __future__ import annotations
@@ -125,66 +130,139 @@ def block_thomas_rt_streamed_plain(gp, gm, ee, refl, rhs):
 
 
 def _check_shapes(name, n, want, tensors):
-    if not 1 <= n <= 8:
-        raise ValueError(f"{name}: the kernel takes N = 1 to 8, got {n}")
+    if n < 1:
+        raise ValueError(f"{name}: the kernel takes N >= 1, got {n}")
     for key, t in zip(want, tensors):
         if tuple(t.shape) != want[key]:
             raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
                              f"expected {want[key]}")
 
 
-def block_thomas_rt_fwd(gp, gm, ee, refl, rhs):
-    """B6 forward: the CUDA kernel on CUDA tensors (float32 only), the
-    plain torch version on CPU tensors.  Returns (cs, ys)."""
-    if gp.device.type == "cpu":
-        return block_thomas_rt_fwd_plain(gp, gm, ee, refl, rhs)
+def _fwd_inputs(name, gp, gm, ee, refl, rhs):
     from sbdart_tpu_torch.kernels import _build
 
     nlyr, n, _, b = gp.shape
-    m = 2 * n
-    _check_shapes("block_thomas_rt_fwd", n, {
+    _check_shapes(name, n, {
         "gp": (nlyr, n, n, b), "gm": (nlyr, n, n, b), "ee": (nlyr, n, b),
-        "refl": (n, n, b), "rhs": (nlyr, m, b)}, (gp, gm, ee, refl, rhs))
+        "refl": (n, n, b), "rhs": (nlyr, 2 * n, b)}, (gp, gm, ee, refl, rhs))
     ins = [t.contiguous() for t in (gp, gm, ee, refl, rhs)]
-    _build.require_cuda_f32("block_thomas_rt_fwd", *ins)
-    new = dict(device=gp.device, dtype=torch.float32)
-    cs = torch.empty((nlyr, m, n, b), **new)
-    ys = torch.empty((nlyr, m, b), **new)
-    lib = _build.library()
-    with torch.cuda.device(gp.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.sbdart_blocktri_rt_fwd(
-            *(t.data_ptr() for t in ins), cs.data_ptr(), ys.data_ptr(),
-            nlyr, n, b, stream,
-        )
-    block_thomas_rt_fwd.launches += 1
-    _build.check(code, "block_thomas_rt_fwd")
-    return cs, ys
+    _build.require_cuda_f32(name, *ins)
+    return ins
 
 
-def block_thomas_rt_bwd(gp, gm, ee, cs, ys):
-    """B6 backward: the CUDA kernel on CUDA tensors (float32 only), the
-    plain torch version on CPU tensors.  Returns xs."""
-    if gp.device.type == "cpu":
-        return block_thomas_rt_bwd_plain(gp, gm, ee, cs, ys)
+def _bwd_inputs(name, gp, gm, ee, cs, ys):
     from sbdart_tpu_torch.kernels import _build
 
     nlyr, n, _, b = gp.shape
     m = 2 * n
-    _check_shapes("block_thomas_rt_bwd", n, {
+    _check_shapes(name, n, {
         "gp": (nlyr, n, n, b), "gm": (nlyr, n, n, b), "ee": (nlyr, n, b),
         "cs": (nlyr, m, n, b), "ys": (nlyr, m, b)}, (gp, gm, ee, cs, ys))
     ins = [t.contiguous() for t in (gp, gm, ee, cs, ys)]
-    _build.require_cuda_f32("block_thomas_rt_bwd", *ins)
-    xs = torch.empty((nlyr, m, b), device=gp.device, dtype=torch.float32)
+    _build.require_cuda_f32(name, *ins)
+    return ins
+
+
+def _launch(name, entry, ins, outs, nlyr, n, b):
+    from sbdart_tpu_torch.kernels import _build
+
     lib = _build.library()
-    with torch.cuda.device(gp.device):
+    with torch.cuda.device(ins[0].device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.sbdart_blocktri_rt_bwd(
-            *(t.data_ptr() for t in ins), xs.data_ptr(), nlyr, n, b, stream,
-        )
+        code = getattr(lib, entry)(
+            *(t.data_ptr() for t in ins + outs), nlyr, n, b, stream)
+    _build.check(code, name)
+
+
+def _group_fits(name, kind, n, device):
+    from sbdart_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    _build.require_shared_memory(
+        name, lambda k: lib.sbdart_blocktri_rt_streamed_group_bytes(kind, k),
+        n, device)
+
+
+# B6 forward's design by N: the one-thread-per-column kernel
+# (blocktri_rt_streamed.cuh, built at these N only) at these N, the group
+# kernel (blocktri_rt_streamed_group.cu) at every other N.  Both are timed
+# by chip_smoke.py (PERF.md §6): the one-thread kernel is ahead at N = 2
+# and 3, on the columns the reference streams there (480 layers x 49152
+# columns, 250 x 12288) as at 65 and 33 layers; the group kernel is ahead
+# from N = 4 on.
+FWD_ONE_THREAD_N = frozenset({1, 2, 3})
+
+
+def _fwd_kernel(name, entry, gp, gm, ee, refl, rhs):
+    ins = _fwd_inputs(name, gp, gm, ee, refl, rhs)
+    nlyr, n, _, b = gp.shape
+    new = dict(device=gp.device, dtype=torch.float32)
+    cs = torch.empty((nlyr, 2 * n, n, b), **new)
+    ys = torch.empty((nlyr, 2 * n, b), **new)
+    _launch(name, entry, ins, [cs, ys], nlyr, n, b)
+    return cs, ys
+
+
+def block_thomas_rt_fwd(gp, gm, ee, refl, rhs):
+    """B6 forward: on CUDA tensors (float32 only) the one-thread CUDA
+    kernel at the N of FWD_ONE_THREAD_N (the only N it is built at) and
+    `block_thomas_rt_fwd_group` at every other N; the plain torch version
+    on CPU tensors.  Returns (cs, ys)."""
+    if gp.device.type == "cpu":
+        return block_thomas_rt_fwd_plain(gp, gm, ee, refl, rhs)
+    if gp.shape[1] not in FWD_ONE_THREAD_N:
+        return block_thomas_rt_fwd_group(gp, gm, ee, refl, rhs)
+    out = _fwd_kernel("block_thomas_rt_fwd", "sbdart_blocktri_rt_fwd", gp,
+                      gm, ee, refl, rhs)
+    block_thomas_rt_fwd.launches += 1
+    return out
+
+
+def block_thomas_rt_fwd_group(gp, gm, ee, refl, rhs):
+    """B6 forward on a group of lanes per column, any N (the CUDA kernel of
+    csrc/blocktri_rt_streamed_group.cu on CUDA tensors, float32 only; the
+    plain torch version on CPU tensors).  Returns (cs, ys)."""
+    if gp.device.type == "cpu":
+        return block_thomas_rt_fwd_plain(gp, gm, ee, refl, rhs)
+    name = "block_thomas_rt_fwd_group"
+    _check_shapes(name, gp.shape[1], {}, ())
+    _group_fits(name, 0, gp.shape[1], gp.device)
+    out = _fwd_kernel(name, "sbdart_blocktri_rt_fwd_group", gp, gm, ee, refl,
+                      rhs)
+    block_thomas_rt_fwd_group.launches += 1
+    return out
+
+
+def block_thomas_rt_bwd(gp, gm, ee, cs, ys):
+    """B6 backward: the one-thread CUDA kernel on CUDA tensors at N = 1 to
+    8 (float32 only), `block_thomas_rt_bwd_group` past N = 8, the plain
+    torch version on CPU tensors.  Returns xs."""
+    if gp.device.type == "cpu":
+        return block_thomas_rt_bwd_plain(gp, gm, ee, cs, ys)
+    nlyr, n, _, b = gp.shape
+    if n > 8:
+        return block_thomas_rt_bwd_group(gp, gm, ee, cs, ys)
+    ins = _bwd_inputs("block_thomas_rt_bwd", gp, gm, ee, cs, ys)
+    xs = torch.empty((nlyr, 2 * n, b), device=gp.device, dtype=torch.float32)
+    _launch("block_thomas_rt_bwd", "sbdart_blocktri_rt_bwd", ins, [xs], nlyr,
+            n, b)
     block_thomas_rt_bwd.launches += 1
-    _build.check(code, "block_thomas_rt_bwd")
+    return xs
+
+
+def block_thomas_rt_bwd_group(gp, gm, ee, cs, ys):
+    """B6 backward on a group of lanes per column, any N (the CUDA kernel
+    of csrc/blocktri_rt_streamed_group.cu on CUDA tensors, float32 only;
+    the plain torch version on CPU tensors).  Returns xs."""
+    if gp.device.type == "cpu":
+        return block_thomas_rt_bwd_plain(gp, gm, ee, cs, ys)
+    name = "block_thomas_rt_bwd_group"
+    ins = _bwd_inputs(name, gp, gm, ee, cs, ys)
+    nlyr, n, _, b = gp.shape
+    _group_fits(name, 1, n, gp.device)
+    xs = torch.empty((nlyr, 2 * n, b), device=gp.device, dtype=torch.float32)
+    _launch(name, "sbdart_blocktri_rt_bwd_group", ins, [xs], nlyr, n, b)
+    block_thomas_rt_bwd_group.launches += 1
     return xs
 
 
@@ -209,4 +287,6 @@ def solve_bvp(gp, gm, ee, refl, rhs, *, kernels=True):
 
 
 block_thomas_rt_fwd.launches = 0
+block_thomas_rt_fwd_group.launches = 0
 block_thomas_rt_bwd.launches = 0
+block_thomas_rt_bwd_group.launches = 0

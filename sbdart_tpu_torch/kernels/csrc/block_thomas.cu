@@ -1,6 +1,8 @@
 // B10: block-Thomas elimination of a block-tridiagonal system whose blocks
 // were assembled beforehand (diag, lower, upper [L, m, m, B], rhs
-// [L, m, B]), m = 2N for N = 1..8, one thread per column.
+// [L, m, B]): m = 2N for N = 1..8 one thread per column
+// (block_thomas_kernel), past m = 16 a group of lanes per column on the
+// elimination core (block_thomas_group_kernel, below).
 //
 // Replaces the TPU kernel sbdart_tpu/pallas/blocktri.py:_kernel (entry
 // block_thomas).  The forward sweep solves
@@ -31,6 +33,7 @@
 
 #include <cuda_runtime.h>
 
+#include "group_solve.cuh"
 #include "solve_step.cuh"
 
 namespace {
@@ -124,7 +127,99 @@ cudaError_t launch(const float* diag, const float* lower, const float* upper,
   return cudaGetLastError();
 }
 
+// Past m = 16, the same solve on the elimination core (group_solve.cuh): a
+// group of G = 32 lanes per column holds [dt | upper | rt] (m x (2m + 1),
+// a padded row stride) in shared memory, with the carry [W | y] and the
+// layer's diag, lower, upper and rhs, which the block copies in together
+// (cp.async, whole 32-byte sectors); m is a run-time argument.  Each
+// element is computed by one lane in the plain version's order.
+struct BtLayout {   // offsets in floats; [W | y] column-major
+  int w, aw, mp, wy, piv, dg, low, up, rl, floats;
+  __host__ __device__ explicit BtLayout(int m)
+      : w(2 * m + 1), aw(sbdart_group::row_stride(2 * m + 1)),
+        mp(sbdart_group::pad4(m)), wy(m * aw), piv(wy + (m + 1) * mp),
+        dg(piv + mp), low(dg + m * m), up(low + m * m), rl(up + m * m),
+        floats(rl + m) {}
+};
+
+__global__ void __launch_bounds__(256, 3) block_thomas_group_kernel(
+    const float* __restrict__ diag,    // [L, m, m, B]
+    const float* __restrict__ lower,   // [L, m, m, B]
+    const float* __restrict__ upper,   // [L, m, m, B]
+    const float* __restrict__ rhs,     // [L, m, B]
+    float* __restrict__ ws,            // [L, m^2, B] scratch: W history
+    float* __restrict__ ys,            // [L, m, B]   scratch: y history
+    float* __restrict__ xs,            // [L, m, B]
+    int nlyr, int m, int ncol, int stride) {
+  extern __shared__ __align__(16) float smem[];
+  const BtLayout lay(m);
+  const int w = lay.w, aw = lay.aw, mp = lay.mp;
+  const int g = sbdart_group::group_size(m);
+  const int lane = threadIdx.x & (g - 1);
+  const sbdart_group::Block bk(g, ncol, stride);
+  float* base = smem + (threadIdx.x / g) * stride;
+  float* a = base;
+  float* wy = base + lay.wy;
+  int* piv = reinterpret_cast<int*>(base + lay.piv);
+  const float* dg = base + lay.dg;
+  const float* low = base + lay.low;
+  const float* up = base + lay.up;
+  const float* rl = base + lay.rl;
+
+  for (int e = lane; e < (m + 1) * mp; e += g) wy[e] = 0.0f;
+  for (int l = 0; l < nlyr; ++l) {
+    const long long first = (long long)l * m * m;
+    bk.stage(smem, lay.dg, diag, first, m * m);
+    bk.stage(smem, lay.low, lower, first, m * m);
+    bk.stage(smem, lay.up, upper, first, m * m);
+    bk.stage(smem, lay.rl, rhs, (long long)l * m, m);
+    sbdart_group::stage_wait();
+    sbdart_group::for_each(m, m, lane, g, [&](int i, int c) {
+      const float* wc = wy + c * mp;
+      float s = low[i * m] * wc[0];
+      for (int q = 1; q < m; ++q) s = s + low[i * m + q] * wc[q];
+      a[i * aw + c] = dg[i * m + c] - s;
+      a[i * aw + m + c] = up[i * m + c];
+    });
+    for (int i = lane; i < m; i += g) {
+      const float* yc = wy + m * mp;
+      float s = low[i * m] * yc[0];
+      for (int q = 1; q < m; ++q) s = s + low[i * m + q] * yc[q];
+      a[i * aw + w - 1] = rl[i] - s;
+    }
+    __syncwarp();
+    sbdart_group::solve(a, aw, w, m, wy, mp, piv, lane, g);
+    __syncthreads();
+    bk.store(ws, first, m, m, smem, lay.wy, 1, mp);
+    bk.store(ys, (long long)l * m, m, 1, smem, lay.wy + m * mp, 1);
+    __syncthreads();
+  }
+  sbdart_group::back_sweep(bk, smem, 0, ws, ys, xs, nlyr, m, lane, g);
+}
+
 }  // namespace
+
+// Shared-memory bytes one column of B10's group kernel takes.
+extern "C" int sbdart_block_thomas_group_bytes(int m) {
+  return static_cast<int>(sizeof(float)) *
+         sbdart_group::column_stride(BtLayout(m).floats,
+                                     sbdart_group::group_size(m));
+}
+
+extern "C" int sbdart_block_thomas_group(const float* diag,
+                                         const float* lower,
+                                         const float* upper, const float* rhs,
+                                         float* ws, float* ys, float* xs,
+                                         int nlyr, int m, int ncol,
+                                         cudaStream_t stream) {
+  if (nlyr <= 0 || ncol <= 0) return 0;
+  if (m < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int stride = sbdart_group::column_stride(BtLayout(m).floats,
+                                                 sbdart_group::group_size(m));
+  return static_cast<int>(sbdart_group::launch(
+      block_thomas_group_kernel, m, stride, ncol, stream, diag, lower, upper,
+      rhs, ws, ys, xs, nlyr, m, ncol, stride));
+}
 
 extern "C" int sbdart_block_thomas(const float* diag, const float* lower,
                                    const float* upper, const float* rhs,

@@ -1,7 +1,8 @@
 // Fused SETMTX + SOLVE0 for general n with the rank-N factor history
 // (N = 1..8; m = 2N <= 16): the boundary-value solve of one column as two
 // kernels, a forward elimination and a backward substitution, one thread
-// per column each.  The kernel templates live here;
+// per column each.  The forward kernel is built at N <= 3 only: from N = 4
+// the group kernel of blocktri_rt_streamed_group.cu is faster.  The kernel templates live here;
 // blocktri_rt_streamed.cu instantiates them at even N and
 // blocktri_rt_streamed_odd.cu at odd N, so that the two compile in
 // parallel.

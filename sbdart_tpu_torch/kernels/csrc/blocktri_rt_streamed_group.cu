@@ -1,0 +1,282 @@
+// B6 on the elimination core (group_solve.cuh): the forward elimination of
+// the rank-N factor history and the backward substitution, a group of
+// lanes per column, N a run-time argument.
+//
+// Replaces the TPU kernels sbdart_tpu/pallas/blocktri.py:
+// _rt_fwd_chunk_kernel and _rt_bwd_chunk_kernel; the arithmetic is that of
+// blocktri_rt_streamed.cuh (the one-thread kernels) and of the plain torch
+// versions in kernels/blocktri_rt_streamed.py, per layer l:
+//   forward   dt_l = diag_l - [(lt_l C_{l-1}) ub_{l-1}; 0], solve
+//             dt_l [C_l | y_l] = [I_bottom | r_l - [lt_l y_{l-1}; 0]]
+//   backward  x_{L-1} = y_{L-1}; x_l = y_l - C_l (ub_l x_{l+1})
+// with ub_{l-1} = -[gp_l, gm_l e_l] and lt_l = -[gm_{l-1} e_{l-1}, gp_{l-1}],
+// which is ub_{l-2} with its two halves swapped: each layer forms its ub
+// once in shared memory and the next layer reads it as its lt.
+//
+// What bounds it on Hopper: the layer recursion is sequential and one
+// column's work per layer is a 2N x (3N + 1) pivoted elimination with
+// 2N steps, so the time is the latency of that chain.  The one-thread
+// kernel held the system in local memory (255 registers and 2640 B of
+// spill stores at N = 8) and ran each step's row updates one after the
+// other in one thread; here G lanes (8, 16 or 32 by 2N) share it in
+// shared memory, one row a lane, so a step is a shuffle reduction for
+// the pivot and one row update per lane; at N = 8, 6144 columns are 3072
+// warps.  A block holds 8 columns and moves each layer's operands into
+// shared memory (cp.async) and its results out together, a warp's
+// accesses whole 32-byte sectors of the column-minor planes.  Bytes:
+// (2N^2 + 3N) floats read and (2N^2 + 2N) written a layer and column.
+//
+// Per layer, each element is computed by one lane, every sum over a block
+// index in order as in the plain versions; built with IEEE division and
+// --fmad=false.
+
+#include "group_solve.cuh"
+
+namespace {
+
+using sbdart_group::Block;
+using sbdart_group::column_stride;
+using sbdart_group::for_each;
+using sbdart_group::group_size;
+using sbdart_group::pad4;
+using sbdart_group::row_stride;
+using sbdart_group::stage_wait;
+using sbdart_group::surface_row;
+
+// Offsets (floats) in one column's shared memory of the forward kernel,
+// each 16-byte aligned: [A | I | r] (2N rows, 3N+1 columns, padded), the
+// carry [C | y] column-major (N+1 columns of 2N, padded), lt_l (N rows of
+// 2N, padded), ub_{l-1} transposed (2N rows of N, padded), lt C (N rows
+// of N, padded), 2N ints of pivot rows, the surface operator R (N x N),
+// the bounds of surface_row (N row sums of |R|, 2N column sums of
+// |[gm e, gp]|), and the layer's gp, gm (N x N), ee (N), r (2N).
+struct FwdLayout {
+  int m, w, aw, mp, np, cy, lt, ubt, tt, piv, rf, rs, gs, in, floats;
+  __host__ __device__ explicit FwdLayout(int n)
+      : m(2 * n), w(3 * n + 1), aw(row_stride(3 * n + 1)), mp(pad4(2 * n)),
+        np(pad4(n)), cy(2 * n * aw), lt(cy + (n + 1) * mp), ubt(lt + n * mp),
+        tt(ubt + 2 * n * np), piv(tt + n * np), rf(piv + pad4(2 * n)),
+        rs(rf + pad4(n * n)), gs(rs + pad4(n)), in(gs + pad4(2 * n)),
+        floats(in + pad4(2 * n * n + 3 * n)) {}
+};
+
+// The backward kernel's: x_{l+1}, x_l (2N each), z (N), and the layer's
+// C_l (2N x N), y_l (2N), gp, gm (N x N) and ee (N) of layer l + 1.
+struct BwdLayout {
+  int m, x0, x1, z, in, floats;
+  __host__ __device__ explicit BwdLayout(int n)
+      : m(2 * n), x0(0), x1(2 * n), z(4 * n), in(5 * n),
+        floats(5 * n + 4 * n * n + 3 * n) {}
+};
+
+__global__ void __launch_bounds__(256, 3) blocktri_rt_fwd_group_kernel(
+    const float* __restrict__ gp,     // [L, N, N, B]
+    const float* __restrict__ gm,     // [L, N, N, B]
+    const float* __restrict__ ee,     // [L, N, B]
+    const float* __restrict__ refl,   // [N, N, B]
+    const float* __restrict__ rhs,    // [L, 2N, B]
+    float* __restrict__ cs,           // [L, 2N, N, B]
+    float* __restrict__ ys,           // [L, 2N, B]
+    int nlyr, int n, int ncol, int stride) {
+  extern __shared__ __align__(16) float smem[];
+  const FwdLayout lay(n);
+  const int m = lay.m, w = lay.w, aw = lay.aw, mp = lay.mp, np = lay.np;
+  const int g = group_size(m);
+  const int lane = threadIdx.x & (g - 1);
+  const Block bk(g, ncol, stride);
+  float* base = smem + (threadIdx.x / g) * stride;
+  float* a = base;
+  float* cy = base + lay.cy;   // column t of [C | y] at cy + t * mp
+  float* lt = base + lay.lt;   // row i of lt_l at lt + i * mp
+  float* ubt = base + lay.ubt;   // column c of ub_{l-1} at ubt + c * np
+  float* tt = base + lay.tt;   // row i of lt_l C_{l-1} at tt + i * np
+  int* piv = reinterpret_cast<int*>(base + lay.piv);
+  const float* rf = base + lay.rf;
+  float* rsum = base + lay.rs;
+  float* gsum = base + lay.gs;
+  const float* gpl = base + lay.in;
+  const float* gml = gpl + n * n;
+  const float* eel = gml + n * n;
+  const float* rl = eel + n;
+  auto fetch = [&](int l) {
+    bk.stage(smem, lay.in, gp, (long long)l * n * n, n * n);
+    bk.stage(smem, lay.in + n * n, gm, (long long)l * n * n, n * n);
+    bk.stage(smem, lay.in + 2 * n * n, ee, (long long)l * n, n);
+    bk.stage(smem, lay.in + 2 * n * n + n, rhs, (long long)l * m, m);
+  };
+  // the next layer's lt, -s [gm_l e_l, gp_l], from this layer's operands
+  auto next_lt = [&](float sgn) {
+    for_each(n, m, lane, g, [&](int i, int k) {
+      lt[i * mp + k] = k < n ? sgn * (gml[i * n + k] * eel[k])
+                             : sgn * gpl[i * n + k - n];
+    });
+  };
+
+  fetch(0);
+  bk.stage(smem, lay.rf, refl, 0, n * n);
+  for (int e = lane; e < (n + 1) * mp; e += g) cy[e] = 0.0f;
+  stage_wait();
+  for (int i = lane; i < n; i += g) {
+    float t = fabsf(rf[i * n]);
+    for (int q = 1; q < n; ++q) t = t + fabsf(rf[i * n + q]);
+    rsum[i] = t;
+  }
+  next_lt(-0.0f);   // layer 0's: the plain version's neg_low = -0
+  __syncwarp();
+
+  for (int l = 0; l < nlyr; ++l) {
+    if (l > 0) {
+      fetch(l);
+      stage_wait();
+    }
+    // ub_{l-1} = -[gp_l, gm_l e_l], transposed
+    for_each(m, n, lane, g, [&](int c, int q) {
+      ubt[c * np + q] =
+          c < n ? -gpl[q * n + c] : -(gml[q * n + c - n] * eel[c - n]);
+    });
+    for_each(n, n, lane, g, [&](int i, int q) {   // lt_l C_{l-1}
+      tt[i * np + q] = sbdart_group::dot(lt + i * mp, cy + q * mp, m);
+    });
+    for (int c = lane; c < m; c += g) {   // bounds of the surface rows
+      float t;
+      if (c < n) {
+        t = fabsf(gml[c] * eel[c]);
+        for (int q = 1; q < n; ++q) t = t + fabsf(gml[q * n + c] * eel[c]);
+      } else {
+        t = fabsf(gpl[c - n]);
+        for (int q = 1; q < n; ++q) t = t + fabsf(gpl[q * n + c - n]);
+      }
+      gsum[c] = t;
+    }
+    __syncwarp();
+    const float last = (l == nlyr - 1) ? 1.0f : 0.0f;
+    // top rows of dt: d_top - (lt C) ub
+    for_each(n, m, lane, g, [&](int i, int c) {
+      const float s = sbdart_group::dot(tt + i * np, ubt + c * np, n);
+      const float d =
+          c < n ? gml[i * n + c] : gpl[i * n + c - n] * eel[c - n];
+      a[i * aw + c] = d - s;
+    });
+    // bottom rows of dt: d_bot - last R [gm e, gp]
+    for_each(n, m, lane, g, [&](int i, int c) {
+      const float* ri = rf + i * n;
+      a[(n + i) * aw + c] =
+          c < n ? surface_row(gpl[i * n + c] * eel[c], last, ri, rsum[i],
+                              gsum[c], n,
+                              [&](int q) { return gml[q * n + c] * eel[c]; })
+                : surface_row(gml[i * n + c - n], last, ri, rsum[i], gsum[c],
+                              n, [&](int q) { return gpl[q * n + c - n]; });
+    });
+    // the columns of dt^-1 to solve for: the bottom rows of the identity
+    for_each(m, n, lane, g, [&](int i, int j) {
+      a[i * aw + m + j] = (i == n + j) ? 1.0f : 0.0f;
+    });
+    for (int i = lane; i < m; i += g) {   // r_l - [lt_l y_{l-1}; 0]
+      float v = rl[i];
+      if (i < n) v = v - sbdart_group::dot(lt + i * mp, cy + n * mp, m);
+      a[i * aw + w - 1] = v;
+    }
+    __syncwarp();
+    next_lt(-1.0f);   // lt_l is read no more
+    sbdart_group::solve(a, aw, w, m, cy, mp, piv, lane, g);
+    __syncthreads();
+    bk.store(cs, (long long)l * m * n, m, n, smem, lay.cy, 1, mp);
+    bk.store(ys, (long long)l * m, m, 1, smem, lay.cy + n * mp, 1);
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(256, 3) blocktri_rt_bwd_group_kernel(
+    const float* __restrict__ gp,     // [L, N, N, B]
+    const float* __restrict__ gm,     // [L, N, N, B]
+    const float* __restrict__ ee,     // [L, N, B]
+    const float* __restrict__ cs,     // [L, 2N, N, B]
+    const float* __restrict__ ys,     // [L, 2N, B]
+    float* __restrict__ xs,           // [L, 2N, B]
+    int nlyr, int n, int ncol, int stride) {
+  extern __shared__ __align__(16) float smem[];
+  const BwdLayout lay(n);
+  const int m = lay.m;
+  const int g = group_size(m);
+  const int lane = threadIdx.x & (g - 1);
+  const Block bk(g, ncol, stride);
+  float* base = smem + (threadIdx.x / g) * stride;
+  float* z = base + lay.z;
+  const float* csl = base + lay.in;
+  const float* yl = csl + m * n;
+  const float* gpn = yl + m;
+  const float* gmn = gpn + n * n;
+  const float* een = gmn + n * n;
+  int cur = lay.x0, nxt = lay.x1;
+
+  bk.stage(smem, cur, ys, (long long)(nlyr - 1) * m, m);
+  stage_wait();
+  bk.store(xs, (long long)(nlyr - 1) * m, m, 1, smem, cur, 1);
+  for (int l = nlyr - 2; l >= 0; --l) {
+    bk.stage(smem, lay.in, cs, (long long)l * m * n, m * n);
+    bk.stage(smem, lay.in + m * n, ys, (long long)l * m, m);
+    bk.stage(smem, lay.in + m * n + m, gp, (long long)(l + 1) * n * n, n * n);
+    bk.stage(smem, lay.in + m * n + m + n * n, gm, (long long)(l + 1) * n * n,
+             n * n);
+    bk.stage(smem, lay.in + m * n + m + 2 * n * n, ee, (long long)(l + 1) * n,
+             n);
+    stage_wait();
+    const float* xc = base + cur;
+    float* xn = base + nxt;
+    for (int i = lane; i < n; i += g) {   // z = ub_l x_{l+1}
+      float s = -gpn[i * n] * xc[0];
+      for (int k = 1; k < m; ++k) {
+        const float u = k < n ? -gpn[i * n + k]
+                              : -(gmn[i * n + k - n] * een[k - n]);
+        s = s + u * xc[k];
+      }
+      z[i] = s;
+    }
+    __syncwarp();
+    for (int r = lane; r < m; r += g) {
+      const float* cr = csl + r * n;
+      float s = cr[0] * z[0];
+      for (int j = 1; j < n; ++j) s = s + cr[j] * z[j];
+      xn[r] = yl[r] - s;
+    }
+    __syncthreads();
+    bk.store(xs, (long long)l * m, m, 1, smem, nxt, 1);
+    const int t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+}
+
+}  // namespace
+
+// Shared-memory bytes one column of a group kernel takes: kind 0 B6
+// forward, 1 B6 backward (the B5 and B10 kinds are in their own sources).
+extern "C" int sbdart_blocktri_rt_streamed_group_bytes(int kind, int n) {
+  const int floats = kind == 0 ? FwdLayout(n).floats : BwdLayout(n).floats;
+  return static_cast<int>(sizeof(float)) *
+         column_stride(floats, group_size(2 * n));
+}
+
+extern "C" int sbdart_blocktri_rt_fwd_group(
+    const float* gp, const float* gm, const float* ee, const float* refl,
+    const float* rhs, float* cs, float* ys, int nlyr, int n, int ncol,
+    cudaStream_t stream) {
+  if (nlyr <= 0 || ncol <= 0) return 0;
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int stride = column_stride(FwdLayout(n).floats, group_size(2 * n));
+  return static_cast<int>(sbdart_group::launch(
+      blocktri_rt_fwd_group_kernel, 2 * n, stride, ncol, stream, gp, gm, ee,
+      refl, rhs, cs, ys, nlyr, n, ncol, stride));
+}
+
+extern "C" int sbdart_blocktri_rt_bwd_group(
+    const float* gp, const float* gm, const float* ee, const float* cs,
+    const float* ys, float* xs, int nlyr, int n, int ncol,
+    cudaStream_t stream) {
+  if (nlyr <= 0 || ncol <= 0) return 0;
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int stride = column_stride(BwdLayout(n).floats, group_size(2 * n));
+  return static_cast<int>(sbdart_group::launch(
+      blocktri_rt_bwd_group_kernel, 2 * n, stride, ncol, stream, gp, gm, ee,
+      cs, ys, xs, nlyr, n, ncol, stride));
+}

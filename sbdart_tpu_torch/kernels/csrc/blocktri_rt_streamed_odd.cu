@@ -1,6 +1,6 @@
-// B6 (blocktri_rt_streamed.cuh) at odd N = 1, 3, 5, 7 (nstr 2, 6, 10,
-// 14), in a translation unit of its own so that it compiles beside the
-// even N.
+// B6 (blocktri_rt_streamed.cuh) at odd N, in a translation unit of its own
+// so that it compiles beside the even N: the backward kernel at N = 1, 3,
+// 5, 7 (nstr 2, 6, 10, 14), the forward kernel at N = 1 and 3.
 
 #include "blocktri_rt_streamed.cuh"
 
@@ -15,12 +15,6 @@ extern "C" int sbdart_blocktri_rt_fwd_odd(
       break;
     case 3:
       err = launch_fwd<3>(gp, gm, ee, refl, rhs, cs, ys, nlyr, ncol, stream);
-      break;
-    case 5:
-      err = launch_fwd<5>(gp, gm, ee, refl, rhs, cs, ys, nlyr, ncol, stream);
-      break;
-    case 7:
-      err = launch_fwd<7>(gp, gm, ee, refl, rhs, cs, ys, nlyr, ncol, stream);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -1,0 +1,343 @@
+// The elimination core of the group kernels: one column's small dense
+// system solved by a group of G lanes (G = 8, 16 or 32, a power of two, so
+// that a group never straddles a warp and several narrow columns share
+// one), with N a run-time argument.  Used by B5, B6 and B10
+// (blocktri_rt_group.cu, blocktri_rt_streamed_group.cu, block_thomas.cu).
+//
+// The augmented system [A | R] (m rows, w columns) of one column lives in
+// shared memory, row major (row_stride); lane r owns the rows r, r + G,
+// ...  Pivoted elimination as solve_step.cuh and the plain torch
+// kernels/blocktri_rt.py:solve_step, step by step:
+//   pivot  the FIRST row of maximal |a[i][k]| among the rows not yet
+//          eliminated, eliminated rows counting as -1, in torch.argmax's
+//          order (as jnp.argmax in the reference's _solve_step): a NaN
+//          above every number, so the first NaN row wins where there is
+//          one.  Each lane scans its rows in order keeping the first
+//          maximum, and a butterfly of shuffles keeps the larger and, on a
+//          tie, the lower row.
+//   update each lane, for each of its rows i still in play, forms
+//          f = a[i][k] * (1 / a[p][k]) and updates the row's columns
+//          c > k: a[i][c] = a[i][c] - f * a[p][c], four at a time.
+//   back   each right-hand column is done by one lane,
+//          x[i] = (a[p_i][m + t] - sum_{j > i} a[p_i][j] x[j]) / a[p_i][i],
+//          the sum in order j = i + 1, ... (four terms read at a time).
+// Each element is computed by one lane in the plain version's order, so
+// the result equals the plain version's to the bit (--fmad=false).
+// One __syncwarp() a step orders the shared-memory updates; the lanes of a
+// warp all run the same steps (N is the same for every column of a launch;
+// a group past the last column works on a copy of the last column and
+// stores nothing).
+//
+// The kernels stage each layer's operands from device memory into shared
+// memory with cp.async (4-byte copies, all in flight at once), so a layer
+// waits for one round trip to memory rather than for each load in turn.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace sbdart_group {
+
+constexpr unsigned kFull = 0xffffffffu;
+
+// The group's lane count for a system of m rows: 8, 16 or 32.
+__host__ __device__ inline int group_size(int m) {
+  return m <= 8 ? 8 : (m <= 16 ? 16 : 32);
+}
+
+// The row stride of a system w columns wide: 4 mod 8 floats, so that each
+// row starts on 16 bytes for the update's float4 accesses, and the rows of
+// the 8 lanes that share a wavefront of them fall on distinct banks.
+__host__ __device__ inline int row_stride(int w) { return (w + 3) / 8 * 8 + 4; }
+
+// Floats one column takes, padded so that the columns a warp holds start
+// G banks apart (stride = G mod 32), and 16-byte aligned; at G = 32 (one
+// column a warp) the stride is 4 mod 32, so that the block's staging
+// writes, one element of each of its 8 columns at a time, fall on
+// distinct banks.
+__host__ inline int column_stride(int floats, int g) {
+  const int want = g == 32 ? 4 : g;
+  int s = floats;
+  while (s % 32 != want) ++s;
+  return s;
+}
+
+// Start a 4-byte copy from device memory into shared memory.
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+// The block's columns: `cols` (a power of two) consecutive columns from
+// col0, each a group of G lanes with `stride` floats of shared memory.
+// The block moves each layer's operands and results between device memory
+// and shared memory together, thread t on element t / cols of column
+// t mod cols, so that a warp's accesses are whole 32-byte sectors of the
+// column-minor planes.
+struct Block {
+  int t, nt, cols, shift, col0, ncol, stride;
+  long long B;
+  __device__ Block(int g, int ncol_, int stride_)
+      : t(threadIdx.x), nt(blockDim.x), cols(blockDim.x / g), shift(0),
+        col0(blockIdx.x * (blockDim.x / g)), ncol(ncol_), stride(stride_),
+        B(ncol_) {
+    while ((1 << shift) < cols) ++shift;
+  }
+
+  // Start copying count floats of a plane, element e of column c at
+  // src[(first + e) * B + c], to offset off + e of each column's region
+  // (a column past the last reads the last).
+  __device__ __forceinline__ void stage(float* smem, int off, const float* src,
+                                        long long first, int count) const {
+    for (int i = t; i < (count << shift); i += nt) {
+      const int e = i >> shift, s = i & (cols - 1);
+      const int c = min(col0 + s, ncol - 1);
+      copy_async(smem + s * stride + off + e, src + (first + e) * B + c);
+    }
+  }
+
+  // Store rows x per floats of each column's region (element (r, k) at
+  // offset off + r * rs + k * ks) to dst[(first + r * per + k) * B + c].
+  __device__ __forceinline__ void store(float* dst, long long first, int rows,
+                                        int per, const float* smem, int off,
+                                        int rs, int ks = 1) const {
+    for (int i = t; i < (rows << shift); i += nt) {
+      const int r = i >> shift, s = i & (cols - 1);
+      const int c = col0 + s;
+      if (c >= ncol) continue;
+      const float* from = smem + s * stride + off + r * rs;
+      float* to = dst + (first + (long long)r * per) * B + c;
+      for (int k = 0; k < per; ++k) to[k * B] = from[k * ks];
+    }
+  }
+};
+
+// Wait for this thread's copies, then for the block's.
+__device__ __forceinline__ void stage_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+}
+
+// The floats of n rounded up to a multiple of 4 (16 bytes).
+__host__ __device__ inline int pad4(int n) { return (n + 3) & ~3; }
+
+// sum_k a[k] b[k] for k < len, in order: the first product, then each
+// next one added (as the plain versions' lane matmul); a and b 16-byte
+// aligned, read four at a time.
+__device__ __forceinline__ float dot(const float* a, const float* b, int len) {
+  float s = a[0] * b[0];
+  int k = 1;
+  for (; k < len && (k & 3); ++k) s = s + a[k] * b[k];
+  for (; k + 3 < len; k += 4) {
+    const float4 u = *reinterpret_cast<const float4*>(a + k);
+    const float4 v = *reinterpret_cast<const float4*>(b + k);
+    s = s + u.x * v.x;
+    s = s + u.y * v.y;
+    s = s + u.z * v.z;
+    s = s + u.w * v.w;
+  }
+  for (; k < len; ++k) s = s + a[k] * b[k];
+  return s;
+}
+
+// Call f(i, j) for the elements (i, j) of a rows x cols matrix this lane
+// owns, lane, lane + g, ... in row-major order.
+template <typename F>
+__device__ __forceinline__ void for_each(int rows, int cols, int lane, int g,
+                                         F f) {
+  int i = lane / cols, j = lane - (lane / cols) * cols;
+  const int di = g / cols, dj = g - (g / cols) * cols;
+  while (i < rows) {
+    f(i, j);
+    i += di;
+    j += dj;
+    if (j >= cols) {
+      j -= cols;
+      ++i;
+    }
+  }
+}
+
+// One bottom-row entry of a layer's diagonal block: d - last * rg with
+// rg = sum_q R[i][q] g[q] (in order), as the plain versions form
+// d_bot - last * (R [gm e, gp]) on every layer.  Where last = 0, d != 0
+// and the bound rs * gs of |rg| (rs = sum |R[i][q]|, gs = sum |g[q]|, both
+// NaN where a term is) is finite and small, 0 * rg is a zero and the
+// entry is d: rg is not formed.  g[q] = gq(q).
+template <typename G>
+__device__ __forceinline__ float surface_row(float d, float last,
+                                             const float* ri, float rs,
+                                             float gs, int n, G gq) {
+  if (last == 0.0f && d != 0.0f && rs * gs < 1e37f) return d;
+  float rg = ri[0] * gq(0);
+  for (int q = 1; q < n; ++q) rg = rg + ri[q] * gq(q);
+  return d - last * rg;
+}
+
+// The pivot row of step k (see the file comment); bit r of `done` marks
+// this lane's row lane + r g as eliminated.  Candidates are ordered as
+// torch.argmax orders them: a NaN above every number, then by value, ties
+// (and NaNs) to the lower row.
+__device__ __forceinline__ int pivot_row(const float* a, int ws, int m, int k,
+                                         unsigned done, int lane, int g) {
+  float best = -3.0f;
+  int nan_best = 0, row = m;
+  for (int i = lane, r = 0; i < m; i += g, ++r) {
+    const float cand = ((done >> r) & 1u) ? -1.0f : fabsf(a[i * ws + k]);
+    const int nan_cand = cand != cand;
+    if (nan_cand > nan_best || (!nan_best && cand > best)) {
+      best = cand;
+      nan_best = nan_cand;
+      row = i;
+    }
+  }
+  for (int off = g >> 1; off > 0; off >>= 1) {
+    const float ob = __shfl_xor_sync(kFull, best, off, g);
+    const int onan = __shfl_xor_sync(kFull, nan_best, off, g);
+    const int orow = __shfl_xor_sync(kFull, row, off, g);
+    bool take;
+    if (onan != nan_best)
+      take = onan > nan_best;   // a NaN beats a number
+    else if (onan)
+      take = orow < row;        // two NaNs: the lower row
+    else
+      take = ob > best || (ob == best && orow < row);
+    if (take) {
+      best = ob;
+      nan_best = onan;
+      row = orow;
+    }
+  }
+  return row;
+}
+
+// Solve A X = B for A = a[:, 0:m], B = a[:, m:w] (a, row stride ws, a
+// multiple of 4 not below w rounded up to one, is destroyed), the solution
+// column-major into x[t * xs + i] for t = 0..w-m-1 (x and xs 16-byte
+// aligned); piv is m ints of scratch.  m <= 32 g.  Entered and left after
+// a __syncwarp().  The row update runs four columns at a time from column
+// k + 1 rounded down to a multiple of 4 up to w rounded up: the columns
+// <= k of a row still in play are never read again (the later pivots'
+// entries past their own step are), and those past w are padding.
+__device__ __forceinline__ void solve(float* a, int ws, int w, int m,
+                                      float* x, int xs, int* piv, int lane,
+                                      int g) {
+  const int lg = __ffs(g) - 1;
+  unsigned done = 0;
+  for (int k = 0; k < m; ++k) {
+    const int p = pivot_row(a, ws, m, k, done, lane, g);
+    const float* prow = a + p * ws;
+    const float inv = 1.0f / prow[k];
+    for (int i = lane, r = 0; i < m; i += g, ++r) {
+      if (((done >> r) & 1u) || i == p) continue;
+      float* row = a + i * ws;
+      const float f = row[k] * inv;
+      for (int c = (k + 1) & ~3; c < w; c += 4) {
+        float4 v = *reinterpret_cast<float4*>(row + c);
+        const float4 q = *reinterpret_cast<const float4*>(prow + c);
+        v.x = v.x - f * q.x;
+        v.y = v.y - f * q.y;
+        v.z = v.z - f * q.z;
+        v.w = v.w - f * q.w;
+        *reinterpret_cast<float4*>(row + c) = v;
+      }
+    }
+    if ((p & (g - 1)) == lane) done |= 1u << (p >> lg);
+    if (lane == 0) piv[k] = p;
+    __syncwarp();
+  }
+  for (int c = m + lane; c < w; c += g) {
+    float* xt = x + (c - m) * xs;
+    for (int i = m - 1; i >= 0; --i) {
+      const float* prow = a + piv[i] * ws;
+      float s = prow[c];
+      int j = i + 1;
+      for (; j < m && (j & 3); ++j) s = s - prow[j] * xt[j];
+      for (; j + 3 < m; j += 4) {
+        const float4 u = *reinterpret_cast<const float4*>(prow + j);
+        const float4 v = *reinterpret_cast<const float4*>(xt + j);
+        s = s - u.x * v.x;
+        s = s - u.y * v.y;
+        s = s - u.z * v.z;
+        s = s - u.w * v.w;
+      }
+      for (; j < m; ++j) s = s - prow[j] * xt[j];
+      xt[i] = s / prow[i];
+    }
+  }
+  __syncwarp();
+}
+
+// The back sweep of a full-W block-Thomas (B5, B10): x_{L-1} = y_{L-1},
+// x_l = y_l - W_l x_{l+1}, from the history ws [L, m*m, B], ys [L, m, B],
+// at `off` in each column's region: m*m + 3m floats (the layer's W and y,
+// x_{l+1}, x_l).  Row r of x_l is done by lane r mod g.  Entered after a
+// __syncthreads() that follows the history's stores.
+__device__ __forceinline__ void back_sweep(const Block& bk, float* smem,
+                                           int off, const float* wsh,
+                                           const float* ys, float* xs,
+                                           int nlyr, int m, int lane, int g) {
+  const int slot = bk.t / g;
+  float* w_l = smem + slot * bk.stride + off;
+  float* y_l = w_l + m * m;
+  const int cur0 = off + m * m + m;
+  int cur = cur0, nxt = cur0 + m;
+  bk.stage(smem, cur, ys, (long long)(nlyr - 1) * m, m);
+  stage_wait();
+  bk.store(xs, (long long)(nlyr - 1) * m, m, 1, smem, cur, 1);
+  for (int l = nlyr - 2; l >= 0; --l) {
+    bk.stage(smem, off, wsh, (long long)l * m * m, m * m);
+    bk.stage(smem, off + m * m, ys, (long long)l * m, m);
+    stage_wait();
+    const float* xc = smem + slot * bk.stride + cur;
+    float* xn = smem + slot * bk.stride + nxt;
+    for (int r = lane; r < m; r += g) {
+      const float* wr = w_l + r * m;
+      float s = wr[0] * xc[0];
+      for (int j = 1; j < m; ++j) s = s + wr[j] * xc[j];
+      xn[r] = y_l[r] - s;
+    }
+    __syncthreads();
+    bk.store(xs, (long long)l * m, m, 1, smem, nxt, 1);
+    const int t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+}
+
+// Launch a group kernel: `cols` columns a block (8 where they fit: a
+// 32-byte sector of each column-minor row), `stride` floats of shared
+// memory a column.  Returns cudaErrorInvalidValue where one column does
+// not fit the card's opt-in shared memory (the wrappers refuse that N
+// first, naming the limit).
+template <typename Kernel, typename... Args>
+cudaError_t launch(Kernel kernel, int m, int stride, int ncol,
+                   cudaStream_t stream, Args... args) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (err != cudaSuccess) return err;
+  const int g = group_size(m);
+  int cols = 8;
+  const size_t col_bytes = sizeof(float) * (size_t)stride;
+  while (cols > 1 && cols * col_bytes > (size_t)optin) cols >>= 1;
+  const size_t smem = cols * col_bytes;
+  if (smem > (size_t)optin) return cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  // all of the SM's unified memory as shared memory, so that as many
+  // blocks as it holds run at once (the kernels keep nothing in L1)
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  const int blocks = (ncol + cols - 1) / cols;
+  kernel<<<blocks, cols * g, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+}  // namespace sbdart_group

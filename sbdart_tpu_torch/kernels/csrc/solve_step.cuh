@@ -5,7 +5,8 @@
 // Mirrors sbdart_tpu/pallas/blocktri.py:_solve_step and its plain torch
 // twin sbdart_tpu_torch/kernels/blocktri_rt.py:solve_step: implicit
 // pivoting (rows are never exchanged; the pivot of step k is the FIRST row
-// of maximal |a[i][k]| among the rows not yet eliminated), elimination of
+// of maximal |a[i][k]| among the rows not yet eliminated, a NaN counting
+// above every number as in torch.argmax and jnp.argmax), elimination of
 // columns > k only (the shrinking form: column k is never read again), and
 // back-substitution from the saved pivot rows.  Eliminated rows are left
 // as they are, which equals the reference's update by a zero factor.
@@ -30,7 +31,8 @@ __device__ __forceinline__ void solve_step(float (&a)[M][M + R],
     float best = -2.0f;
     for (int i = 0; i < M; ++i) {
       const float cand = elim[i] ? -1.0f : fabsf(a[i][k]);
-      if (cand > best) {
+      // torch.argmax's order: the first NaN wins, else the first maximum
+      if (best == best && (cand > best || cand != cand)) {
         best = cand;
         p = i;
       }

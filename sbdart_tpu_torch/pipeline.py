@@ -35,7 +35,7 @@ from sbdart_tpu_torch.solar import (
     solar_irradiance,
     spectral_grid,
 )
-from sbdart_tpu_torch.solver.disort import solve_rte, unsupported
+from sbdart_tpu_torch.solver.disort import solve_rte
 from sbdart_tpu_torch.surface import surface_albedo
 
 THERMAL_WL_UM = 2.0     # nothrm = -1: thermal source on beyond this (rt.doc)
@@ -157,11 +157,6 @@ def run_pipeline(
     want_rad = umu is not None
     thermal = thermal_mask(cfg, wl)
     any_thermal = bool(thermal.any())
-    why = unsupported(nstr=cfg.nstr, dtype=dtype, device=device)
-    if why is not None:
-        raise NotImplementedError(
-            f"sbdart_tpu_torch.run_pipeline does not port {why} yet"
-        )
 
     if profile is None:
         profile = build_profile(cfg)

@@ -14,8 +14,10 @@ reference's order:
     on a BRDF surface, all-mode solves without user angles: the generic
     path (disort.py:181-329: solver/eig.py, sources.py, bvp.py, fields.py,
     radiance.py).  In float32 it takes the reference's TPU route (B9 or
-    the fused front end B4/B8, B2/B5/B6 for the BVP); in float64 its CPU
-    route (torch.linalg eigh/Cholesky/solve and the lane block-Thomas).
+    the fused front end B4/B8, B2/B5/B6 for the BVP, at every N: past
+    N = 8 B5 and B6 run their group-per-column kernels); in float64 its
+    CPU route (torch.linalg eigh/Cholesky/solve and the lane
+    block-Thomas).
 
 Methods (`eig_method`):
   * "auto": float32 runs the kernel wrappers, which launch the CUDA
@@ -37,8 +39,8 @@ paths take none):
     B10 (kernels/blocktri.py), the kernel the reference holds equal to
     that scan (tests/test_pallas_kernels.py:20-29).
 
-Float32 on a CUDA device with N > 8 is refused (`unsupported`): no kernel
-is built past N = 8, and a plain version does not stand in for one.
+Without `device` and without tensor inputs the solve runs on the CUDA card,
+or on the CPU where the caller asks (`dtypes.default_device`).
 
 Outputs at ALL layer boundaries (the pipeline interpolates user levels).
 """
@@ -65,17 +67,6 @@ class RteOutputs(NamedTuple):
 
 EIG_METHODS = ("auto", "plain")
 BVP_METHODS = ("auto", "scan")
-
-
-def unsupported(*, nstr: int, dtype, device) -> str | None:
-    """Why the port refuses a request, or None: float32 on a CUDA device
-    with N = nstr/2 above 8 needs B5/B6 beyond N = 8, which are not built
-    (ROADMAP Queue B)."""
-    if (nstr // 2 > 8 and parse_dtype(dtype) == torch.float32
-            and torch.device(device).type == "cuda"):
-        return (f"nstr={nstr} in float32 on a CUDA device (N = nstr/2 above "
-                "8): ROADMAP item \"B5/B6 beyond N = 8\"")
-    return None
 
 
 def route(*, nstr: int, onlyfl: bool, brdf, umu=None, phi=None) -> str:
@@ -133,11 +124,6 @@ def solve_rte(
         device = (dtauc.device if isinstance(dtauc, torch.Tensor)
                   else default_device())
     dtype = default_dtype(device) if dtype is None else parse_dtype(dtype)
-    why = unsupported(nstr=nstr, dtype=dtype, device=device)
-    if why is not None:
-        raise NotImplementedError(
-            f"sbdart_tpu_torch.solve_rte does not port {why} yet"
-        )
 
     def t(x):
         return torch.as_tensor(x, dtype=dtype, device=device)

@@ -58,7 +58,8 @@ def check(arrays):
 
 
 @pytest.mark.parametrize(
-    "nlyr,m,b", [(33, 4, 300), (5, 8, 128), (2, 2, 700), (33, 8, 130)])
+    "nlyr,m,b", [(33, 4, 300), (5, 8, 128), (2, 2, 700), (33, 8, 130),
+                 (3, 20, 16)])
 def test_block_thomas_plain_matches_pallas_interpret(nlyr, m, b):
     check(random_system(nlyr, m, b))
 

@@ -49,7 +49,7 @@ from sbdart_tpu_torch.kernels.blocktri_rt_streamed import (
 
 @pytest.mark.parametrize("nlyr,n,b,coupling", [
     (5, 4, 128, 0.4), (9, 4, 130, 0.4), (6, 8, 130, 0.15), (2, 8, 40, 0.4),
-    (5, 6, 130, 0.3),
+    (5, 6, 130, 0.3), (3, 9, 8, 0.3), (2, 10, 6, 0.3),
 ])
 def test_blocktri_rt_plain_matches_pallas_interpret(nlyr, n, b, coupling):
     prob = [x.astype(np.float32)
@@ -76,7 +76,7 @@ def test_blocktri_rt_plain_matches_pallas_interpret_n2(monkeypatch):
 
 
 @pytest.mark.parametrize("nlyr,n,b", [(7, 4, 12), (4, 8, 6), (1, 6, 5),
-                                      (9, 2, 7)])
+                                      (9, 2, 7), (3, 9, 4), (2, 10, 3)])
 def test_blocktri_rt_plain_solves_assembled_system_f64(nlyr, n, b):
     """The elimination solves the SETMTX system: float64 against a dense
     LAPACK solve, to roundoff (bar 1e-11 of max |x|)."""
@@ -141,7 +141,8 @@ def test_blocktri_rt_wrapper_takes_plain_version_on_cpu():
 
 @pytest.mark.parametrize("nlyr,n,b,coupling,chunk", [
     (5, 4, 130, 0.4, 2), (9, 6, 20, 0.4, 4), (6, 6, 40, 0.3, 6),
-    (7, 8, 16, 0.15, 3), (7, 2, 130, 0.4, 3),
+    (7, 8, 16, 0.15, 3), (7, 2, 130, 0.4, 3), (5, 9, 8, 0.3, 2),
+    (4, 10, 6, 0.3, 3),
 ])
 def test_blocktri_rt_streamed_plain_matches_pallas_interpret(
         nlyr, n, b, coupling, chunk):
@@ -158,7 +159,8 @@ def test_blocktri_rt_streamed_plain_matches_pallas_interpret(
 
 
 @pytest.mark.parametrize("nlyr,n,b", [(7, 4, 12), (4, 8, 6), (5, 6, 5),
-                                      (1, 4, 3), (6, 2, 9)])
+                                      (1, 4, 3), (6, 2, 9), (3, 9, 4),
+                                      (2, 10, 3)])
 def test_blocktri_rt_streamed_plain_solves_assembled_system_f64(nlyr, n, b):
     prob = rt_problem(nlyr, n, b, coupling=0.4, seed=3)
     want = dense_solve(*prob)
@@ -188,7 +190,8 @@ def test_blocktri_rt_streamed_plain_pivots_at_reference_f32_floor():
     assert err_got <= 2.0 * err_ref + 1e-6, (err_got, err_ref)
 
 
-@pytest.mark.parametrize("n,first", [(4, 147), (6, 71), (8, 42)])
+@pytest.mark.parametrize("n,first", [(4, 147), (6, 71), (8, 42), (9, 34),
+                                     (10, 28), (16, 11), (20, 7)])
 def test_streams_where_the_reference_streams(monkeypatch, n, first):
     """reference_streams against the reference's own routing, observed by
     tracing block_thomas_rt abstractly with its streamed entry recorded."""

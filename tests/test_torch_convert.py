@@ -34,6 +34,25 @@ def test_policy_f64_on_cpu_and_tf32_off(monkeypatch):
         dtypes.parse_dtype("bfloat16")
 
 
+def test_device_is_the_card_unless_the_cpu_is_asked_for(monkeypatch):
+    """No silent CPU fallback: without a card and without a request the
+    default device raises and says how to ask; SBDART_TPU_DEVICE=cpu (or
+    device="cpu" per call) asks for the CPU."""
+    monkeypatch.delenv("SBDART_TPU_DEVICE", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="SBDART_TPU_DEVICE=cpu"):
+        dtypes.default_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        deck_to_torch(())
+    monkeypatch.setenv("SBDART_TPU_DEVICE", "cpu")
+    assert dtypes.default_device() == torch.device("cpu")
+    assert dtypes.default_dtype() == torch.float64
+    monkeypatch.delenv("SBDART_TPU_DEVICE")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert dtypes.default_device() == torch.device("cuda")
+    assert dtypes.default_dtype() == torch.float32
+
+
 def test_angular_tables_equal_reference():
     for nstr in (4, 8, 16):
         ref, got = ref_angular_tables(nstr, 3), angular_tables(nstr, 3)
@@ -97,7 +116,8 @@ def test_thermal_and_16_stream_inputs_carry_to_torch():
 
 def test_cli_module_runs_without_card(tmp_path):
     """`python -m sbdart_tpu_torch.cli INPUT` prints the iout=10 line on a
-    machine without a CUDA device (float64 on the CPU)."""
+    machine without a CUDA device when the CPU is asked for
+    (SBDART_TPU_DEVICE=cpu: float64 on the CPU)."""
     path = tmp_path / "INPUT"
     path.write_text(" &INPUT\n   idatm=2, wlinf=0.5, wlsup=0.6, wlinc=0.05,"
                     "\n   sza=30, albcon=0.2, nstr=4, iout=10\n /\n")
@@ -105,6 +125,7 @@ def test_cli_module_runs_without_card(tmp_path):
         [sys.executable, "-m", "sbdart_tpu_torch.cli", str(path)],
         capture_output=True, text=True, timeout=120,
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        env=dict(os.environ, SBDART_TPU_DEVICE="cpu"),
     )
     assert proc.returncode == 0, proc.stderr
     vals = [float(v) for v in proc.stdout.split()]

@@ -1,9 +1,8 @@
 """Requests the lane paths do not take run on the generic path and match
 the reference (float64, CPU): stream counts whose N = nstr/2 is odd or
 above 8, flux-only solves on a BRDF surface, and all-mode solves with or
-without user angles, thermal or not.  The one request the port refuses
-is float32 on a CUDA device with N > 8 (`route`/`unsupported`, named
-below); ibcnd=1 is a later slice.
+without user angles, thermal or not (`route`, named below); nothing is
+refused for N.  ibcnd=1 is a later slice.
 
 The reference runs under one jax.jit (tests/test_torch_generic.py:
 ref_solve); the bar is 1e-9 of each field's max (measured <= 6e-15).
@@ -20,7 +19,7 @@ from sbdart_tpu.solver.brdf import RpvBrdf as RefRpvBrdf
 from sbdart_tpu_torch import cli
 from sbdart_tpu_torch.config import Config
 from sbdart_tpu_torch.pipeline import run_albtrn, run_pipeline
-from sbdart_tpu_torch.solver.disort import route, solve_rte, unsupported
+from sbdart_tpu_torch.solver.disort import route, solve_rte
 from test_torch_generic import ref_solve, worst
 from test_torch_radlane import port
 
@@ -76,8 +75,7 @@ def test_generic_requests_run_and_match_reference(name):
 
 
 def test_route_names_each_request():
-    """The path of each request, and the one refusal (float32 on a CUDA
-    device with N > 8), decided without running anything."""
+    """The path of each request, decided without running anything."""
     hapke = object()
     for kw, path in [
         (dict(nstr=4, onlyfl=True, brdf=None), "flux_lane"),
@@ -94,13 +92,13 @@ def test_route_names_each_request():
          "generic"),
     ]:
         assert route(**kw) == path, kw
-    for nstr, dtype, device in [(16, torch.float32, "cuda"),
-                                (14, torch.float32, "cuda"),
-                                (18, torch.float64, "cuda"),
-                                (32, torch.float32, "cpu")]:
-        assert unsupported(nstr=nstr, dtype=dtype, device=device) is None
-    why = unsupported(nstr=18, dtype=torch.float32, device="cuda")
-    assert "B5/B6 beyond N = 8" in why
+    # past N = 8 every request takes the generic path, fluxes or radiances,
+    # on either surface: nothing is refused for N
+    for nstr in (18, 20, 32):
+        for kw in (dict(onlyfl=True, brdf=None),
+                   dict(onlyfl=True, brdf=hapke),
+                   dict(onlyfl=False, brdf=None, umu=[0.5], phi=[0.0])):
+            assert route(nstr=nstr, **kw) == "generic", (nstr, kw)
 
 
 def test_radiance_solves_run():
@@ -111,7 +109,7 @@ def test_radiance_solves_run():
     for kw in (RADIANCE, dict(THERMAL, **RADIANCE),
                dict(RADIANCE, brdf=RpvBrdf())):
         out = solve_rte(DTAU, SSALB, PMOM, nstr=4, fbeam=1.0, umu0=0.5,
-                        albedo=0.1, dtype=torch.float64, **kw)
+                        albedo=0.1, dtype=torch.float64, device="cpu", **kw)
         assert out.uu.shape == (2, 5, 1, 1)
         assert bool(torch.isfinite(out.uu).all())
 
@@ -148,7 +146,8 @@ def test_pipeline_generic_requests_match_reference(name):
             assert err < 1e-7, (cfg["nstr"], field, err)
 
 
-def test_ibcnd1_refused_by_albtrn_and_cli(tmp_path):
+def test_ibcnd1_refused_by_albtrn_and_cli(tmp_path, monkeypatch):
+    monkeypatch.setenv("SBDART_TPU_DEVICE", "cpu")
     cfg = Config(idatm=2, wlinf=0.5, wlsup=0.6, wlinc=0.05, nstr=4,
                  ibcnd=1).validate()
     with pytest.raises(NotImplementedError, match="ibcnd=1"):

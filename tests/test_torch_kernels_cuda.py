@@ -137,16 +137,25 @@ def test_blocktri_rt_streamed_kernels_match_plain(cuda_device, nstr, ncol):
         block_thomas_rt_fwd_plain)
 
     _, ops = _general(ncol, nstr, cuda_device, nlyr=65)
-    before = (block_thomas_rt_fwd.launches, block_thomas_rt_bwd.launches)
+    before = (_fwd_launches(), block_thomas_rt_bwd.launches)
     cs, ys = block_thomas_rt_fwd(*ops)
     cs_p, ys_p = block_thomas_rt_fwd_plain(*ops)
     xs = block_thomas_rt_bwd(*ops[:3], cs_p, ys_p)
     torch.cuda.synchronize()
-    assert (block_thomas_rt_fwd.launches,
+    assert (_fwd_launches(),
             block_thomas_rt_bwd.launches) == (before[0] + 1, before[1] + 1)
     _assert_close(cs, cs_p, "cs")
     _assert_close(ys, ys_p, "ys")
     _assert_close(xs, block_thomas_rt_bwd_plain(*ops[:3], cs_p, ys_p), "xs")
+
+
+def _fwd_launches():
+    """Launches of B6 forward's two kernels (the design by N of
+    blocktri_rt_streamed.FWD_ONE_THREAD_N)."""
+    from sbdart_tpu_torch.kernels.blocktri_rt_streamed import (
+        block_thomas_rt_fwd, block_thomas_rt_fwd_group)
+
+    return block_thomas_rt_fwd.launches + block_thomas_rt_fwd_group.launches
 
 
 def _radiance(nstr, nlyr, nbc, device):
@@ -366,14 +375,14 @@ def test_bvp_kernels_at_odd_n_match_plain(cuda_device, nstr, cols):
 
     bvp, _ = _generic(nstr, 640, 9, cuda_device, onlyfl=True)["solve_bvp"]
     ops = tuple(x[..., :cols].contiguous() for x in bvp)
-    before = (block_thomas_rt.launches, block_thomas_rt_fwd.launches,
+    before = (block_thomas_rt.launches, _fwd_launches(),
               block_thomas_rt_bwd.launches)
     got = block_thomas_rt(*ops)
     cs, ys = block_thomas_rt_fwd(*ops)
     cs_p, ys_p = block_thomas_rt_fwd_plain(*ops)
     xs = block_thomas_rt_bwd(*ops[:3], cs_p, ys_p)
     torch.cuda.synchronize()
-    assert (block_thomas_rt.launches, block_thomas_rt_fwd.launches,
+    assert (block_thomas_rt.launches, _fwd_launches(),
             block_thomas_rt_bwd.launches) == tuple(b + 1 for b in before)
     _assert_close(got, block_thomas_rt_plain(*ops), "xs (B5)")
     _assert_close(cs, cs_p, "cs")
@@ -423,8 +432,21 @@ def test_generic_solve_kernels_match_plain(cuda_device, nstr, kw, kernel,
 
 
 @pytest.mark.cuda
-def test_generic_kernels_refuse_float64_and_n_above_8(cuda_device):
+@pytest.mark.parametrize("nstr,f64_bar", [(18, 1e-2), (40, None)])
+def test_generic_kernels_refuse_float64_and_run_n_above_8(cuda_device, nstr,
+                                                          f64_bar):
+    """The generic path's kernels refuse float64; float32 nstr=18 and 40
+    run on the card (B5's group kernel at N = 9 and 20), the kernel path
+    equal to the plain path; at nstr=18 the fluxes sit within 1e-2 of the
+    float64 route's (of each field's max).  At nstr=40 these random optics
+    leave the float32 route itself 0.13 of rfldn's max from float64 (the
+    plain path alike), so it is held to the plain path only.  A float32
+    beam resonance gives such gaps: where |k mu0 - 1| is at float32's
+    rounding in a layer, the reference's float32 route is off too
+    (tests/test_torch_generic_f32.py holds the port no further from
+    float64 than the reference at nstr=40)."""
     from sbdart_tpu_torch.kernels.blocktri import block_thomas
+    from sbdart_tpu_torch.kernels.blocktri_rt import block_thomas_rt_group
     from sbdart_tpu_torch.kernels.eig_chain import eig_chain
     from sbdart_tpu_torch.solver.bvp import assemble_blocks
     from sbdart_tpu_torch.solver.disort import solve_rte
@@ -439,9 +461,119 @@ def test_generic_kernels_refuse_float64_and_n_above_8(cuda_device):
         block_thomas(*(x.double() for x in blocks))
     import chip_smoke
 
-    args, kw = chip_smoke.generic_problem(13, 1, 5, cuda_device, nstr=18,
+    args, kw = chip_smoke.generic_problem(13, 1, 5, cuda_device, nstr=nstr,
                                           onlyfl=True)
-    with pytest.raises(NotImplementedError, match="B5/B6 beyond N = 8"):
-        solve_rte(*args, dtype=torch.float32, **kw)
-    out = solve_rte(*args, dtype=torch.float64, **kw)
-    assert torch.isfinite(out.flup).all()
+    before = block_thomas_rt_group.launches
+    out32 = solve_rte(*args, dtype=torch.float32, **kw)
+    assert block_thomas_rt_group.launches == before + 1
+    plain = solve_rte(*args, dtype=torch.float32, eig_method="plain", **kw)
+    out64 = solve_rte(*args, dtype=torch.float64, **kw)
+    for name in ("rfldn", "flup", "uavg", "dfdt"):
+        a = getattr(out32, name)
+        assert torch.isfinite(a).all(), name
+        assert torch.equal(a, getattr(plain, name)), name
+        if f64_bar is not None:
+            b = getattr(out64, name)
+            err = float((a.double() - b).abs().max() / b.abs().max())
+            assert err <= f64_bar, (name, err)
+
+
+def _bvp_operands(n, nlyr, ncol, device, seed=0):
+    """Random B5/B6 operands on the card (gp, gm, ee, refl, rhs), the
+    systems of tests/test_torch_block_thomas.py's assembled-block case, with
+    a NaN in one column's right-hand side (as the float32 beam resonance of
+    ROADMAP Queue C leaves one)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def u(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=device)
+
+    eye = torch.eye(n, device=device)[None, :, :, None]
+    gm = 2.0 * eye + 0.3 * torch.randn((nlyr, n, n, ncol), generator=gen,
+                                       device=device)
+    gp = 0.4 * torch.randn((nlyr, n, n, ncol), generator=gen, device=device)
+    ee = u(0.05, 0.8, nlyr, n, ncol)
+    refl = u(0.0, 0.3, n, n, ncol)
+    rhs = torch.randn((nlyr, 2 * n, ncol), generator=gen, device=device)
+    rhs[min(1, nlyr - 1), 0, ncol // 2] = float("nan")
+    return gp, gm, ee, refl, rhs
+
+
+def _assert_equal(got, want, name):
+    """Bit for bit, NaN where the plain version has NaN."""
+    assert got.shape == want.shape, name
+    torch.testing.assert_close(got, want, rtol=0.0, atol=0.0, equal_nan=True,
+                               msg=name)
+
+
+GROUP_N = [1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 16, 20]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", GROUP_N)
+@pytest.mark.parametrize("ncol", [6144, 130])
+def test_group_bvp_kernels_match_plain(cuda_device, n, ncol):
+    """The group-per-column kernels against their plain versions, to the
+    bit with the NaN column's NaN positions: B6 forward and backward at
+    65 layers, B5 at 33 layers, B10 on the assembled blocks at 33 layers
+    (m = 2N)."""
+    from sbdart_tpu_torch.kernels import blocktri_rt_streamed as b6
+    from sbdart_tpu_torch.kernels.blocktri import (
+        block_thomas_group, block_thomas_plain)
+    from sbdart_tpu_torch.kernels.blocktri_rt import (
+        block_thomas_rt_group, block_thomas_rt_plain)
+    from sbdart_tpu_torch.solver.bvp import assemble_blocks
+
+    ops = _bvp_operands(n, 65, ncol, cuda_device)
+    cs, ys = b6.block_thomas_rt_fwd_group(*ops)
+    cs_p, ys_p = b6.block_thomas_rt_fwd_plain(*ops)
+    before = b6.block_thomas_rt_bwd_group.launches
+    xs = b6.block_thomas_rt_bwd_group(*ops[:3], cs_p, ys_p)
+    torch.cuda.synchronize()
+    assert b6.block_thomas_rt_bwd_group.launches == before + 1
+    _assert_equal(cs, cs_p, "cs")
+    _assert_equal(ys, ys_p, "ys")
+    _assert_equal(xs, b6.block_thomas_rt_bwd_plain(*ops[:3], cs_p, ys_p),
+                  "xs (B6)")
+    assert bool(torch.isnan(ys).any()) and not bool(torch.isnan(cs).any())
+    gp, gm, ee, refl, rhs = ops
+    ops = (gp[:33].contiguous(), gm[:33].contiguous(), ee[:33].contiguous(),
+           refl, rhs[:33].contiguous())
+    before = block_thomas_rt_group.launches
+    got = block_thomas_rt_group(*ops)
+    torch.cuda.synchronize()
+    assert block_thomas_rt_group.launches == before + 1
+    _assert_equal(got, block_thomas_rt_plain(*ops), "xs (B5)")
+    blocks = tuple(x.contiguous() for x in (*assemble_blocks(*ops[:4]),
+                                            ops[4]))
+    before = block_thomas_group.launches
+    got = block_thomas_group(*blocks)
+    torch.cuda.synchronize()
+    assert block_thomas_group.launches == before + 1
+    _assert_equal(got, block_thomas_plain(*blocks), "xs (B10)")
+
+
+@pytest.mark.cuda
+def test_group_kernels_refuse_past_shared_memory(cuda_device):
+    """Where one column's system no longer fits the card's opt-in shared
+    memory, the group kernels' wrappers refuse it and name the limit."""
+    from sbdart_tpu_torch.kernels import blocktri_rt_streamed as b6
+    from sbdart_tpu_torch.kernels.blocktri import block_thomas_group
+    from sbdart_tpu_torch.kernels.blocktri_rt import block_thomas_rt_group
+    from sbdart_tpu_torch.solver.bvp import assemble_blocks
+
+    ops = _bvp_operands(80, 2, 1, cuda_device)
+    with pytest.raises(ValueError, match="shared memory.*N up to"):
+        b6.block_thomas_rt_fwd_group(*ops)
+    with pytest.raises(ValueError, match="shared memory.*N up to"):
+        block_thomas_rt_group(*ops)
+    blocks = (*assemble_blocks(*ops[:4]), ops[4])
+    with pytest.raises(ValueError, match="shared memory.*m up to"):
+        block_thomas_group(*blocks)
+    # the limit lies past N = 24 (nstr 48) for every group kernel
+    ops = _bvp_operands(24, 2, 3, cuda_device)
+    hist = b6.block_thomas_rt_fwd_group(*ops)
+    b6.block_thomas_rt_bwd_group(*ops[:3], *hist)
+    block_thomas_rt_group(*ops)
+    block_thomas_group(*assemble_blocks(*ops[:4]), ops[4])
+    torch.cuda.synchronize()

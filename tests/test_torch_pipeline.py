@@ -81,7 +81,8 @@ def test_format_iout_matches_reference(both, iout):
                 assert abs(float(gv) - float(rv)) <= BAR * scale, (rv, gv)
 
 
-def test_cli_prints_reference_iout10(both, tmp_path, capsys):
+def test_cli_prints_reference_iout10(both, tmp_path, capsys, monkeypatch):
+    monkeypatch.setenv("SBDART_TPU_DEVICE", "cpu")
     ref, _ = both
     path = tmp_path / "INPUT"
     path.write_text(

@@ -92,7 +92,8 @@ def test_solve_rte_f64_matches_reference_generic_route(nlyr):
     args, kw = flux_problem(nlyr, 16)
     ref = _ref_f64(args, kw)
     t = rte_inputs_to_torch(dtype=torch.float64, device="cpu", **kw)
-    got = solve_rte(*args, nstr=4, **t, onlyfl=True, dtype=torch.float64)
+    got = solve_rte(*args, nstr=4, **t, onlyfl=True, dtype=torch.float64,
+                    device="cpu")
     for name in OUTPUTS:
         assert getattr(got, name).dtype == torch.float64
         err = _rel_err(getattr(got, name), getattr(ref, name))
@@ -103,7 +104,8 @@ def test_solve_rte_f64_matches_reference_generic_route(nlyr):
 def test_solve_rte_f32_matches_reference_lane_path():
     args, kw = flux_problem(6, 16)
     ref = _ref_f32(args, kw)
-    got = solve_rte(*args, nstr=4, **kw, onlyfl=True, dtype=torch.float32)
+    got = solve_rte(*args, nstr=4, **kw, onlyfl=True, dtype=torch.float32,
+                    device="cpu")
     for name in OUTPUTS:
         assert getattr(got, name).dtype == torch.float32
         err = _rel_err(getattr(got, name), getattr(ref, name))
@@ -114,8 +116,8 @@ def test_solve_rte_conservative_column_at_reference_floor():
     args, kw = flux_problem(6, 16, conservative=True)
     truth = _ref_f64(args, kw)
     ref32 = _ref_f32(args, kw)
-    got64 = solve_rte(*args, nstr=4, **kw, dtype=torch.float64)
-    got32 = solve_rte(*args, nstr=4, **kw, dtype=torch.float32)
+    got64 = solve_rte(*args, nstr=4, **kw, dtype=torch.float64, device="cpu")
+    got32 = solve_rte(*args, nstr=4, **kw, dtype=torch.float32, device="cpu")
     for name in OUTPUTS:
         t = np.asarray(getattr(truth, name))
         err64 = _rel_err(getattr(got64, name), t)
@@ -131,15 +133,15 @@ def test_solve_rte_routes_agree_and_unaligned_batch_stays_finite():
     unaligned batch of 130 columns with conservative and beam-free lanes
     gives finite outputs in float32 (the reference's padding trap)."""
     args, kw = flux_problem(5, 65, nk=2, seed=2, conservative=True)
-    auto = solve_rte(*args, nstr=4, **kw, dtype=torch.float32)
+    auto = solve_rte(*args, nstr=4, **kw, dtype=torch.float32, device="cpu")
     plain = solve_rte(*args, nstr=4, **kw, dtype=torch.float32,
-                      eig_method="plain")
+                      eig_method="plain", device="cpu")
     for name in OUTPUTS:
         a, p = getattr(auto, name), getattr(plain, name)
         assert a.shape == (65, 2, 6)
         assert torch.isfinite(a).all() and torch.equal(a, p)
     with pytest.raises(ValueError, match="eig_method"):
-        solve_rte(*args, nstr=4, **kw, eig_method="fused")
+        solve_rte(*args, nstr=4, **kw, eig_method="fused", device="cpu")
 
 
 def fused_flux_problem(nstr, nlyr, b, planck, seed=0):
@@ -186,7 +188,8 @@ def _reference(nstr, planck, nlyr=6):
 @pytest.mark.parametrize("nstr,planck", CASES)
 def test_solve_rte_general_f32_matches_reference_lane_path(nstr, planck):
     args, kw, extra, r32, _ = _reference(nstr, planck)
-    got = solve_rte(*args, nstr=nstr, **kw, **extra, dtype=torch.float32)
+    got = solve_rte(*args, nstr=nstr, **kw, **extra, dtype=torch.float32,
+                    device="cpu")
     for name in ("rfldn", "flup", "uavg", "dfdt"):
         assert getattr(got, name).dtype == torch.float32
         err = _rel_err(getattr(got, name), getattr(r32, name))
@@ -196,7 +199,8 @@ def test_solve_rte_general_f32_matches_reference_lane_path(nstr, planck):
 @pytest.mark.parametrize("nstr,planck", CASES)
 def test_solve_rte_general_f64_matches_reference_generic_route(nstr, planck):
     args, kw, extra, _, r64 = _reference(nstr, planck)
-    got = solve_rte(*args, nstr=nstr, **kw, **extra, dtype=torch.float64)
+    got = solve_rte(*args, nstr=nstr, **kw, **extra, dtype=torch.float64,
+                    device="cpu")
     for name in OUTPUTS:
         err = _rel_err(getattr(got, name), getattr(r64, name))
         assert err < 1e-10, (name, err)
@@ -208,8 +212,8 @@ def test_solve_rte_streamed_bvp_shape_matches_reference():
 
     assert reference_streams(42, 8) and not reference_streams(41, 8)
     args, kw, _, r32, r64 = _reference(16, False, nlyr=42)
-    got32 = solve_rte(*args, nstr=16, **kw, dtype=torch.float32)
-    got64 = solve_rte(*args, nstr=16, **kw, dtype=torch.float64)
+    got32 = solve_rte(*args, nstr=16, **kw, dtype=torch.float32, device="cpu")
+    got64 = solve_rte(*args, nstr=16, **kw, dtype=torch.float64, device="cpu")
     for name in ("rfldn", "flup", "uavg", "dfdt"):
         err = _rel_err(getattr(got32, name), getattr(r32, name))
         assert err < 5e-4, (name, err)
@@ -233,8 +237,10 @@ def test_f32_thermal_thin_band_tracks_f64():
     ref64 = ref_solve_rte(*(jnp.asarray(a) for a in (dtau, ssalb, pmom)),
                           dtype=jnp.float64, eig_method="xla",
                           bvp_method="scan", **kw)
-    got32 = solve_rte(dtau, ssalb, pmom, dtype=torch.float32, **kw)
-    got64 = solve_rte(dtau, ssalb, pmom, dtype=torch.float64, **kw)
+    got32 = solve_rte(dtau, ssalb, pmom, dtype=torch.float32, device="cpu",
+                      **kw)
+    got64 = solve_rte(dtau, ssalb, pmom, dtype=torch.float64, device="cpu",
+                      **kw)
     for name in ("rfldn", "flup", "uavg"):
         a = getattr(got32, name).double().numpy()
         for truth in (getattr(got64, name).numpy(),
