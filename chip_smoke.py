@@ -5,6 +5,12 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
+or, to compare two checkouts on one card (run them in turns, all on the
+same card: parent, change, change, parent), time the BVP and eigen
+kernels of the package in another checkout at this script's shapes:
+
+    python3 chip_smoke.py --ab PATH/TO/CHECKOUT
+
 Phases, one JSON line each; the first failure exits non-zero:
 
   1. device   the card's name and power limit (nvidia-smi);
@@ -38,7 +44,14 @@ Phases, one JSON line each; the first failure exits non-zero:
               and backward at N = 10 (G7's, 65 layers x 6144) and N = 16
               (65 x 6144), B10 on G7's assembled blocks (m = 20), B5 at
               N = 9 (G8's, 33 x 6144) and N = 20 (6 x 6144); each also at
-              130 columns or lanes;
+              130 columns or lanes; B5's two designs at each N the main
+              path sends it (N = 1 to 5 and 8, the shapes
+              blocktri_rt.RT_ONE_THREAD_N is read at); the group kernels
+              past the shared memory of one column (a "shared_memory" line
+              with the first N each kernel's whole column and its system
+              alone no longer fit, then B5, B6 and B10 at the first of
+              those and at nstr = 128, 3 layers x 3 columns with a NaN
+              column: their far instances);
   4. solve    solve_rte in float32 through the kernels against the plain
               path on the card (max-abs error / max-abs <= 5e-4), with
               band-columns/s for both, and the kernel path's device time
@@ -66,7 +79,9 @@ Phases, one JSON line each; the first failure exits non-zero:
               at N = 9), and again with bvp_method="scan" (B10's group
               kernel at m = 18); G9 nstr=32 x 65 x 256, radiances at the
               5 x 3 view grid (B6's group kernels at N = 16,
-              compute_radiances);
+              compute_radiances); G10 nstr=128 x 3 layers x 4, fluxes,
+              and again with bvp_method="scan" (the far instances of B6
+              forward and of B10);
   5. cli      the sbdart CLI on BASELINE config 1 (Lambertian closure
               botup/botdn = albcon to 1e-5), config 2 (tropical LW, 4-40 um,
               nstr=4: OLR finite, positive, and within 1e-2 of the float64
@@ -82,7 +97,8 @@ Phases, one JSON line each; the first failure exits non-zero:
 
 Kernel launch counters are zeroed just before each run of phases 4 and
 5 and read just after it: each kernel must have been launched by the runs
-whose path holds it.  Then come the run's seconds (in all, the kernel
+whose path holds it; B5's launches on phases 4 and 5 are also counted by
+shape (an "rt_shapes" line).  Then come the run's seconds (in all, the kernel
 phase, each main-path phase), the kernels summary, the nvidia-smi line,
 and as the last line {"ok": true, "device": {...}}.  Without a CUDA
 device the script fails.
@@ -669,13 +685,21 @@ def phase_kernels(device, reps):
     return summary
 
 
+def rt_kernel(n):
+    """The name of the B5 kernel block_thomas_rt runs at N = n."""
+    from sbdart_tpu_torch.kernels.blocktri_rt import RT_ONE_THREAD_N
+
+    return "blocktri_rt" if n in RT_ONE_THREAD_N else "blocktri_rt_group"
+
+
 def bvp_calls(bvp, hist):
-    """The check_kernel calls of B5 and B6 (forward, both designs where
-    both are built: the one-thread kernel at the N of FWD_ONE_THREAD_N;
-    backward on the plain forward's history `hist`) on one BVP's
-    operands."""
+    """The check_kernel calls of B5 and B6 forward (each in both designs
+    where both are built: the one-thread kernels at the N of
+    RT_ONE_THREAD_N and FWD_ONE_THREAD_N) and B6 backward (on the plain
+    forward's history `hist`) on one BVP's operands."""
     from sbdart_tpu_torch.kernels.blocktri_rt import (
-        block_thomas_rt, block_thomas_rt_plain)
+        RT_ONE_THREAD_N, block_thomas_rt, block_thomas_rt_group,
+        block_thomas_rt_plain)
     from sbdart_tpu_torch.kernels.blocktri_rt_streamed import (
         FWD_ONE_THREAD_N, block_thomas_rt_bwd, block_thomas_rt_bwd_plain,
         block_thomas_rt_fwd, block_thomas_rt_fwd_group,
@@ -684,6 +708,9 @@ def bvp_calls(bvp, hist):
     calls = {
         "blocktri_rt": (
             ("xs",), lambda: block_thomas_rt(*bvp),
+            lambda: block_thomas_rt_plain(*bvp), 2, bvp),
+        "blocktri_rt_group": (
+            ("xs",), lambda: block_thomas_rt_group(*bvp),
             lambda: block_thomas_rt_plain(*bvp), 2, bvp),
         "blocktri_rt_fwd": (
             ("cs", "ys"), lambda: block_thomas_rt_fwd(*bvp),
@@ -698,6 +725,8 @@ def bvp_calls(bvp, hist):
     }
     if bvp[0].shape[1] not in FWD_ONE_THREAD_N:
         del calls["blocktri_rt_fwd"]
+    if bvp[0].shape[1] not in RT_ONE_THREAD_N:
+        del calls["blocktri_rt"]
     return calls
 
 
@@ -718,7 +747,8 @@ def phase_kernels_general(device, reps):
     cases = [(4, NLYR, NBC), (16, NLYR16, NBC16), (8, NLYR, NBC16)]
     # the nstr whose shape gives each kernel's times in the summary: one
     # where the main path runs it
-    summary_nstr = {"eig_n2_scatter": 4, "eig_beam": 16, "blocktri_rt": 8,
+    summary_nstr = {"eig_n2_scatter": 4, "eig_beam": 16,
+                    "blocktri_rt": None, "blocktri_rt_group": None,
                     "blocktri_rt_fwd": None, "blocktri_rt_fwd_group": 16,
                     "blocktri_rt_bwd": 16}
     for nstr, nlyr, nbc in cases:
@@ -749,7 +779,7 @@ def phase_kernels_general(device, reps):
                     time_kernel(row, kern, plain, reps, plain_reps)
                 row["on_main_path"] = (
                     kname in ("eig_beam", "eig_n2_scatter")
-                    or (kname == "blocktri_rt" and not streams)
+                    or (kname == rt_kernel(nstr // 2) and not streams)
                     or (kname in ("blocktri_rt_fwd_group", "blocktri_rt_bwd")
                         and streams))
                 fold(summary, row,
@@ -903,6 +933,9 @@ GENERIC = {
     "G7": (20, NBC16, NLYR16, dict(onlyfl=True)),
     "G8": (18, NBC16, NLYR, dict(onlyfl=True)),
     "G9": (32, NBC_RAD16, NLYR16, dict(onlyfl=False, angles=True)),
+    # past the shared memory of one column: the group kernels' far
+    # instances on a short deck
+    "G10": (128, 4, 3, dict(onlyfl=True)),
 }
 
 
@@ -1021,8 +1054,7 @@ def phase_kernels_group(device, reps):
     summary = {}
     # the shape whose times stand in the kernels summary (B6 forward's is
     # N = 8, in phase_kernels_general)
-    main = {"blocktri_rt_bwd_group": "G7", "block_thomas_group": "G7",
-            "blocktri_rt_group": "G8"}
+    main = {"blocktri_rt_bwd_group": "G7", "block_thomas_group": "G7"}
     for name, nstr, nbc, nlyr in GROUP_SHAPES:
         bvp, _ = generic_kernel_operands(*generic_problem(
             nbc, NK, nlyr, device, nstr=nstr, onlyfl=True))["solve_bvp"]
@@ -1069,6 +1101,192 @@ def phase_kernels_group(device, reps):
               "nstr": nstr, "bar": KERNEL_BAR, "results": rows})
         del calls, rows
         torch.cuda.empty_cache()
+    return summary
+
+
+def rt_operands(n, device):
+    """B5's operands at the shape the main path gives it at N = n: N = 2
+    the nstr=4 flux cell at 65 layers (65 x 49152), 3 G4's (33 x 12288),
+    4 the nstr=8 flux BVP (33 x 6144, as G6's), 5 G5's (33 x 7680), 8
+    BASELINE config 3's chunk (32 layers x 48 wavelengths x 3 k-terms);
+    N = 1, which no phase runs, nstr=2 fluxes on G4's columns."""
+    if n == 1:
+        return generic_kernel_operands(*generic_problem(
+            4096, NK, NLYR, device, nstr=2, onlyfl=True))["solve_bvp"][0]
+    if n == 2:
+        return kernel_operands(flux_problem(NBC, NK, 65, device))[3]
+    if n in (3, 5):
+        return generic_operands({3: "G4", 5: "G5"}[n], device)[
+            "solve_bvp"][0]
+    nbc, nlyr = {4: (NBC16, NLYR), 8: (48, 32)}[n]
+    prob = flux_problem(nbc, NK, nlyr, device, nmom=2 * n + 1)
+    return general_kernel_operands(prob, 2 * n)[1]
+
+
+# the N at which the rt_rule phase times B5's two designs
+RT_RULE_N = (1, 2, 3, 4, 5, 8)
+
+
+def phase_kernels_rt_rule(device, reps):
+    """B5's two designs at each N the main path sends it (RT_RULE_N, at
+    rt_operands' shapes), each against the plain version and timed: the
+    group kernel always, the one-thread kernel where it is built (the N of
+    RT_ONE_THREAD_N), the shapes RT_ONE_THREAD_N is read at."""
+    import torch
+
+    from sbdart_tpu_torch.kernels.blocktri_rt import (
+        RT_ONE_THREAD_N, block_thomas_rt, block_thomas_rt_group,
+        block_thomas_rt_plain)
+
+    summary = {}
+    for n in RT_RULE_N:
+        bvp = tuple(x.contiguous() for x in rt_operands(n, device))
+        calls = {"blocktri_rt_group": (block_thomas_rt_group, 1)}
+        if n in RT_ONE_THREAD_N:
+            calls["blocktri_rt"] = (block_thomas_rt, 1)
+        rows = []
+        for kname, (wrapper, plain_reps) in calls.items():
+            def kern(w=wrapper):
+                return w(*bvp)
+
+            def plain():
+                return block_thomas_rt_plain(*bvp)
+
+            row = check_kernel(kname, ("xs",), kern, plain,
+                               bvp[0].shape[-1], bvp)
+            time_kernel(row, kern, plain, reps, plain_reps)
+            row["on_main_path"] = kname == rt_kernel(n)
+            # the kernels line: the group kernel at N = 4, the one-thread
+            # kernel at N = 2 (the nstr=4 flux cell at 65 layers)
+            fold(summary, row, main=(n, kname) in (
+                (4, "blocktri_rt_group"), (2, "blocktri_rt")))
+            rows.append(row)
+        emit({"phase": "kernel", "path": "rt_rule", "n": n,
+              "layers": bvp[0].shape[0], "columns": bvp[0].shape[-1],
+              "one_thread": n in RT_ONE_THREAD_N, "bar": KERNEL_BAR,
+              "results": rows})
+        del bvp, rows
+        torch.cuda.empty_cache()
+    return summary
+
+
+def random_bvp(n, nlyr, ncol, device, seed=0):
+    """Random B5/B6 operands (gp, gm, ee, refl, rhs) on the card, the
+    systems of tests/test_torch_kernels_cuda.py:_bvp_operands, with a NaN
+    in one column's right-hand side."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def u(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=device)
+
+    eye = torch.eye(n, device=device)[None, :, :, None]
+    gm = 2.0 * eye + 0.3 * torch.randn((nlyr, n, n, ncol), generator=gen,
+                                       device=device)
+    gp = 0.4 * torch.randn((nlyr, n, n, ncol), generator=gen, device=device)
+    ee = u(0.05, 0.8, nlyr, n, ncol)
+    refl = u(0.0, 0.3, n, n, ncol)
+    rhs = torch.randn((nlyr, 2 * n, ncol), generator=gen, device=device)
+    return with_nan((gp, gm, ee, refl, rhs))
+
+
+def group_limits(device):
+    """For each group kernel with a far instance: the first N (m for B10)
+    whose whole column exceeds the card's opt-in shared memory (the
+    limit before the far placement) and the first whose system alone
+    does (the limit now), from its *_bytes entry point."""
+    import torch
+
+    from sbdart_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    optin = torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin
+
+    def first(column_bytes):
+        size = 1
+        while column_bytes(size) <= optin:
+            size += 1
+        return size
+
+    rt, st, bt = (lib.sbdart_blocktri_rt_group_bytes,
+                  lib.sbdart_blocktri_rt_streamed_group_bytes,
+                  lib.sbdart_block_thomas_group_bytes)
+    return optin, {
+        "blocktri_rt_group": (first(lambda n: rt(n, 0)),
+                              first(lambda n: rt(n, 1))),
+        "blocktri_rt_fwd_group": (first(lambda n: st(0, n)),
+                                  first(lambda n: st(2, n))),
+        "blocktri_rt_bwd_group": (first(lambda n: st(1, n)),
+                                  first(lambda n: st(1, n))),
+        "block_thomas_group": (first(lambda m: bt(m, 0)),
+                               first(lambda m: bt(m, 1))),
+    }
+
+
+def phase_kernels_far(device):
+    """The group kernels past the N whose whole column fills the card's
+    shared memory (their far instances: the system in shared memory, the
+    rest in device scratch): the limits before and now, then B5, B6
+    forward (and backward on its plain history) and B10 against their
+    plain versions at the first N the old layout refused and at nstr =
+    128 (N = 64, m = 128), 3 layers x 3 columns with a NaN column."""
+    import torch
+
+    from sbdart_tpu_torch.kernels.blocktri import (
+        block_thomas_group, block_thomas_plain)
+    from sbdart_tpu_torch.kernels.blocktri_rt import (
+        block_thomas_rt_group, block_thomas_rt_plain)
+    from sbdart_tpu_torch.kernels.blocktri_rt_streamed import (
+        block_thomas_rt_bwd_group, block_thomas_rt_bwd_plain,
+        block_thomas_rt_fwd_group, block_thomas_rt_fwd_plain)
+    from sbdart_tpu_torch.solver.bvp import assemble_blocks
+
+    optin, limits = group_limits(device)
+    emit({"phase": "shared_memory", "optin_bytes": optin,
+          "first_refused_whole_column": {k: v[0] for k, v in limits.items()},
+          "first_refused_now": {k: v[1] for k, v in limits.items()}})
+    summary = {}
+    rows = []
+    cases = [("blocktri_rt_group", limits["blocktri_rt_group"][0]),
+             ("blocktri_rt_group", 64),
+             ("blocktri_rt_fwd_group", limits["blocktri_rt_fwd_group"][0]),
+             ("blocktri_rt_fwd_group", 64),
+             ("block_thomas_group", limits["block_thomas_group"][0]),
+             ("block_thomas_group", 128)]
+    for kname, size in cases:
+        if kname == "block_thomas_group":
+            ops = random_bvp((size + 1) // 2, 3, 3, device)
+            blocks = tuple(x.contiguous() for x in
+                           (*assemble_blocks(*ops[:4]), ops[4]))
+            calls = {kname: (("xs",), lambda b=blocks: block_thomas_group(*b),
+                             lambda b=blocks: block_thomas_plain(*b))}
+        else:
+            ops = random_bvp(size, 3, 3, device)
+            if kname == "blocktri_rt_group":
+                calls = {kname: (("xs",), lambda: block_thomas_rt_group(*ops),
+                                 lambda: block_thomas_rt_plain(*ops))}
+            else:
+                hist = block_thomas_rt_fwd_plain(*ops)
+                calls = {
+                    kname: (("cs", "ys"),
+                            lambda: block_thomas_rt_fwd_group(*ops),
+                            lambda: block_thomas_rt_fwd_plain(*ops)),
+                    "blocktri_rt_bwd_group": (
+                        ("xs",),
+                        lambda: block_thomas_rt_bwd_group(*ops[:3], *hist),
+                        lambda: block_thomas_rt_bwd_plain(*ops[:3], *hist)),
+                }
+        for k, (names, kern, plain) in calls.items():
+            row = check_kernel(k, names, kern, plain, 3)
+            row.update(size=size, layers=3, columns=3,
+                       far=size >= limits[k][0])
+            fold(summary, row, main=False)
+            rows.append(row)
+        torch.cuda.synchronize()
+    emit({"phase": "kernel", "path": "far", "bar": KERNEL_BAR,
+          "results": rows})
     return summary
 
 
@@ -1436,9 +1654,9 @@ KERNELS = {   # name: (wrapper module, wrapper, source, the TPU kernel,
     "eig_n2_scatter": ("eig_n2_scatter", "eig_beam_scatter_n2",
                        "eig_n2_scatter.cu", "sbdart_tpu/pallas/eig.py:780",
                        "eig_n2_scatter_kernel"),
-    "eig_beam": ("eig_beam", "eig_beam_chain", "eig_beam.cu",
-                 "sbdart_tpu/pallas/eig.py:281", "eig_beam_kernel"),
-    "blocktri_rt": ("blocktri_rt", "block_thomas_rt", "blocktri_rt.cuh",
+    "eig_beam": ("eig_beam", "eig_beam_chain", "eig_beam_group.cu",
+                 "sbdart_tpu/pallas/eig.py:281", "eig_beam_group_kernel"),
+    "blocktri_rt": ("blocktri_rt", "block_thomas_rt", "blocktri_rt.cu",
                     "sbdart_tpu/pallas/blocktri.py:269",
                     "blocktri_rt_kernel"),
     "blocktri_rt_fwd": ("blocktri_rt_streamed", "block_thomas_rt_fwd",
@@ -1480,6 +1698,27 @@ KERNELS = {   # name: (wrapper module, wrapper, source, the TPU kernel,
 }
 
 
+@contextlib.contextmanager
+def rt_shape_tally():
+    """Count B5's launches on the main path by shape: {(layers, N,
+    columns): calls of block_thomas_rt through solve_bvp}."""
+    from sbdart_tpu_torch.kernels import blocktri_rt_streamed as b6
+
+    tally = {}
+    wrapper = b6.block_thomas_rt
+
+    def counted(gp, *rest):
+        key = tuple(int(x) for x in (gp.shape[0], gp.shape[1], gp.shape[-1]))
+        tally[key] = tally.get(key, 0) + 1
+        return wrapper(gp, *rest)
+
+    b6.block_thomas_rt = counted
+    try:
+        yield tally
+    finally:
+        b6.block_thomas_rt = wrapper
+
+
 def main() -> int:
     import importlib
 
@@ -1519,7 +1758,9 @@ def main() -> int:
                  phase_kernels_bvp_n2(device, reps=10),
                  phase_kernels_fwd_rule(device, reps=5),
                  phase_kernels_generic(device, reps=10),
-                 phase_kernels_group(device, reps=5)):
+                 phase_kernels_group(device, reps=5),
+                 phase_kernels_rt_rule(device, reps=10),
+                 phase_kernels_far(device)):
         merge(summary, part)
     t_kernels = time.perf_counter() - t0
 
@@ -1536,7 +1777,7 @@ def main() -> int:
         (lambda: phase_solve(device, reps=10, planck=True),
          ("eig_n2_scatter", "blocktri_rt_n2")),
         (lambda: phase_solve(device, reps=10, nlyr=65),
-         ("eig_n2_deltam", "blocktri_rt")),
+         ("eig_n2_deltam", rt_kernel(2))),
         (lambda: phase_radiance(device, reps=10, nstr=4, nbc=4096,
                                 nlyr=NLYR),
          ("eig_n2_planar", "blocktri_rt_n2", "radsrc")),
@@ -1548,22 +1789,22 @@ def main() -> int:
          ("eig_beam", "blocktri_rt_fwd_group", "blocktri_rt_bwd", "radsrc")),
         (lambda: phase_radiance(device, reps=10, nstr=8, nbc=512,
                                 nlyr=NLYR, planck=True, brdf=True),
-         ("eig_beam", "blocktri_rt", "radsrc")),
+         ("eig_beam", rt_kernel(4), "radsrc")),
         (phase_cli, ("eig_n2_deltam", "blocktri_rt_n2")),
         (phase_cli_config2, ("eig_n2_scatter", "blocktri_rt_n2")),
-        (phase_cli_config3, ("eig_beam", "blocktri_rt")),
-        (phase_cli_config4, ("eig_beam", "blocktri_rt", "radsrc")),
+        (phase_cli_config3, ("eig_beam", rt_kernel(8))),
+        (phase_cli_config4, ("eig_beam", rt_kernel(8), "radsrc")),
         (lambda: phase_generic(device, 3, "G1"),
          ("eig_chain", "blocktri_rt_fwd_group", "blocktri_rt_bwd")),
-        (lambda: phase_generic(device, 5, "G2"), ("eig_chain", "blocktri_rt")),
+        (lambda: phase_generic(device, 5, "G2"), ("eig_chain", rt_kernel(4))),
         (lambda: phase_generic(device, 5, "G2", bvp_method="scan"),
          ("eig_chain", "block_thomas")),
         (lambda: phase_generic(device, 5, "G3"),
          ("eig_chain", "blocktri_rt_n2")),
-        (lambda: phase_generic(device, 5, "G4"), ("blocktri_rt",)),
-        (lambda: phase_generic(device, 5, "G5"), ("blocktri_rt",)),
-        (lambda: phase_generic(device, 5, "G6"), ("eig_beam", "blocktri_rt")),
-        (lambda: phase_cli_config4(nstr=10), ("blocktri_rt",)),
+        (lambda: phase_generic(device, 5, "G4"), (rt_kernel(3),)),
+        (lambda: phase_generic(device, 5, "G5"), (rt_kernel(5),)),
+        (lambda: phase_generic(device, 5, "G6"), ("eig_beam", rt_kernel(4))),
+        (lambda: phase_cli_config4(nstr=10), (rt_kernel(5),)),
         (lambda: phase_generic(device, 1, "G7", bar=0.0),
          ("blocktri_rt_fwd_group", "blocktri_rt_bwd_group")),
         (lambda: phase_generic(device, 1, "G8", bar=0.0),
@@ -1574,22 +1815,30 @@ def main() -> int:
          ("blocktri_rt_fwd_group", "blocktri_rt_bwd_group")),
         (lambda: phase_cli_config4(nstr=32),
          ("blocktri_rt_fwd_group", "blocktri_rt_bwd_group")),
+        (lambda: phase_generic(device, 1, "G10", bar=0.0),
+         ("blocktri_rt_fwd_group", "blocktri_rt_bwd_group")),
+        (lambda: phase_generic(device, 1, "G10", bvp_method="scan", bar=0.0),
+         ("block_thomas_group",)),
     ]
     launches = dict.fromkeys(KERNELS, 0)
     walls = []
-    for phase, owned in owners:
-        for fn in wrappers.values():
-            fn.launches = 0
-        t0 = time.perf_counter()
-        rec = phase()
-        walls.append(round(time.perf_counter() - t0, 1))
-        counts = {k: fn.launches for k, fn in wrappers.items()}
-        missed = [k for k in owned if counts[k] == 0]
-        if missed:
-            raise SmokeFailure(f"{rec['phase']} {rec.get('input', '')} "
-                               f"skipped its kernels {missed}")
-        for k, c in counts.items():
-            launches[k] += c
+    with rt_shape_tally() as rt_shapes:
+        for phase, owned in owners:
+            for fn in wrappers.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            rec = phase()
+            walls.append(round(time.perf_counter() - t0, 1))
+            counts = {k: fn.launches for k, fn in wrappers.items()}
+            missed = [k for k in owned if counts[k] == 0]
+            if missed:
+                raise SmokeFailure(f"{rec['phase']} {rec.get('input', '')} "
+                                   f"skipped its kernels {missed}")
+            for k, c in counts.items():
+                launches[k] += c
+    emit({"phase": "rt_shapes", "launches": [
+        {"n": n, "layers": nlyr, "columns": b, "kernel": rt_kernel(n),
+         "launches": c} for (nlyr, n, b), c in sorted(rt_shapes.items())]})
 
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
           "kernel_phase_seconds": t_kernels, "main_path_phase_seconds": walls})
@@ -1605,8 +1854,118 @@ def main() -> int:
     return 0
 
 
+def ab_cases(device):
+    """(kernel, N, builder of the zero-argument call) for `ab_times`: B4
+    layered at 65 x 6144 (N = 4, 6, 8) and flat at 16 x 65 x 256; B5's
+    designs at rt_operands' shapes and the group kernel at G8's (N = 9)
+    and at N = 20 (6 x 6144); B6 forward's group kernel at N = 2 (480 x
+    49152), 8, 10 and 16 (65 x 6144), its backward kernels at N = 8
+    (one-thread), 10 and 16 (group); B10's group kernel on G7's blocks
+    (m = 20)."""
+    from sbdart_tpu_torch.kernels import blocktri_rt as b5
+    from sbdart_tpu_torch.kernels import blocktri_rt_streamed as b6
+    from sbdart_tpu_torch.kernels import eig_beam as b4
+    from sbdart_tpu_torch.kernels.blocktri import block_thomas_group
+    from sbdart_tpu_torch.solver.bvp import assemble_blocks
+
+    def b4_call(front):
+        return lambda: b4.eig_beam_chain(*front)
+
+    for nstr in (8, 12, 16):
+        prob = flux_problem(NBC16, NK, NLYR16, device, nmom=nstr + 1)
+        front, bvp = general_kernel_operands(prob, nstr)
+        n = nstr // 2
+        yield "eig_beam", n, front[0].shape, b4_call(front)
+        if n == 8:
+            yield "blocktri_rt_fwd_group", 8, bvp[0].shape, (
+                lambda bvp=bvp: b6.block_thomas_rt_fwd_group(*bvp))
+            hist = b6.block_thomas_rt_fwd_plain(*bvp)
+            yield "blocktri_rt_bwd", 8, bvp[0].shape, (
+                lambda bvp=bvp, h=hist: b6.block_thomas_rt_bwd(*bvp[:3], *h))
+    ops = radiance_kernel_operands(*radiance_problem(NBC_RAD16, NLYR16, device,
+                                                     nstr=16))
+    (cppl, cpml, r1, r2, mu0, tab), _ = ops["eig_beam_chain_lane"]
+    flat = tuple(x.reshape((1,) + x.shape).contiguous()
+                 for x in (cppl, cpml, r1, r2)) + (mu0.contiguous(),
+                                                   tab.mu, tab.w)
+    yield "eig_beam/flat", 8, flat[0].shape, b4_call(flat)
+    one_thread = getattr(b5, "RT_ONE_THREAD_N", range(1, 9))
+    for n in RT_RULE_N:
+        bvp = tuple(x.contiguous() for x in rt_operands(n, device))
+        if n in one_thread:
+            yield "blocktri_rt", n, bvp[0].shape, (
+                lambda bvp=bvp: b5._launch("blocktri_rt", "sbdart_blocktri_rt",
+                                           *bvp))
+        yield "blocktri_rt_group", n, bvp[0].shape, (
+            lambda bvp=bvp: b5.block_thomas_rt_group(*bvp))
+        lanes = getattr(b5, "RT_GROUP_LANES", None)
+        if lanes is not None and n in (4, 5, 8):
+            for g in sorted({8, 16, 32} - {lanes.get(n, 0)}):
+                if g >= 2 * n:
+                    yield f"blocktri_rt_group/g{g}", n, bvp[0].shape, (
+                        lambda bvp=bvp, n=n, g=g: with_lanes(
+                            lanes, n, g, b5.block_thomas_rt_group, bvp))
+    for name, nstr, nbc, nlyr in GROUP_SHAPES:
+        bvp, _ = generic_kernel_operands(*generic_problem(
+            nbc, NK, nlyr, device, nstr=nstr, onlyfl=True))["solve_bvp"]
+        bvp = tuple(x.contiguous() for x in bvp)
+        n = nstr // 2
+        if nlyr == NLYR16:
+            yield "blocktri_rt_fwd_group", n, bvp[0].shape, (
+                lambda bvp=bvp: b6.block_thomas_rt_fwd_group(*bvp))
+            hist = b6.block_thomas_rt_fwd_plain(*bvp)
+            yield "blocktri_rt_bwd_group", n, bvp[0].shape, (
+                lambda bvp=bvp, h=hist: b6.block_thomas_rt_bwd_group(
+                    *bvp[:3], *h))
+        else:
+            yield "blocktri_rt_group", n, bvp[0].shape, (
+                lambda bvp=bvp: b5.block_thomas_rt_group(*bvp))
+        if name == "G7":
+            blocks = tuple(x.contiguous() for x in
+                           (*assemble_blocks(*bvp[:4]), bvp[4]))
+            yield "block_thomas_group", 2 * n, blocks[0].shape, (
+                lambda b=blocks: block_thomas_group(*b))
+    bvp = kernel_operands(flux_problem(NBC, NK, 480, device))[3]
+    bvp = tuple(x.contiguous() for x in bvp)
+    yield "blocktri_rt_fwd_group", 2, bvp[0].shape, (
+        lambda bvp=bvp: b6.block_thomas_rt_fwd_group(*bvp))
+
+
+def ab_times(tree) -> int:
+    """The `--ab` mode: time the kernels of `ab_cases` from the
+    sbdart_tpu_torch package of the checkout at `tree` (built there), one
+    JSON line each (device ms per launch, a CUDA graph of 10 launches,
+    median of 5 replays).  Run on two checkouts in turns (parent, change,
+    change, parent) within one call to compare them on one card."""
+    import torch
+
+    sys.path.insert(0, os.path.abspath(tree))
+    if not torch.cuda.is_available():
+        raise SmokeFailure("no CUDA device")
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    import sbdart_tpu_torch
+
+    from sbdart_tpu_torch.kernels import _build
+
+    _, build_s = _build.build()
+    emit({"phase": "ab", "tree": os.path.abspath(tree),
+          "package": os.path.dirname(sbdart_tpu_torch.__file__),
+          "build_seconds": build_s, "device": torch.cuda.get_device_name(0)})
+    for kname, n, shape, call in ab_cases(device):
+        call()
+        torch.cuda.synchronize()
+        emit({"phase": "ab", "kernel": kname, "n": n,
+              "shape": list(shape), "ms": graph_ms(call, 10)})
+        del call
+        torch.cuda.empty_cache()
+    return 0
+
+
 if __name__ == "__main__":
     try:
+        if len(sys.argv) == 3 and sys.argv[1] == "--ab":
+            sys.exit(ab_times(sys.argv[2]))
         sys.exit(main())
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

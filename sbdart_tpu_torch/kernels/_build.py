@@ -27,12 +27,13 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("eig_n2_deltam.cu", "eig_n2_scatter.cu", "eig_n2_planar.cu",
-           "eig_beam.cu", "eig_chain.cu", "blocktri_rt_n2.cu",
-           "blocktri_rt.cu", "blocktri_rt_odd.cu", "blocktri_rt_group.cu",
+           "eig_beam_group.cu", "eig_chain.cu", "blocktri_rt_n2.cu",
+           "blocktri_rt.cu", "blocktri_rt_group.cu",
            "blocktri_rt_streamed.cu", "blocktri_rt_streamed_odd.cu",
            "blocktri_rt_streamed_group.cu", "block_thomas.cu", "radsrc.cu")
-HEADERS = ("eig_n2_chain.cuh", "eig_chain.cuh", "solve_step.cuh",
-           "group_solve.cuh", "blocktri_rt.cuh", "blocktri_rt_streamed.cuh")
+HEADERS = ("eig_n2_chain.cuh", "eig_chain.cuh", "eig_group.cuh",
+           "solve_step.cuh",
+           "group_solve.cuh", "blocktri_rt_streamed.cuh")
 # IEEE sqrt/div/exp (no --use_fast_math) and no contracted multiply-adds:
 # the kernels round where their plain torch versions do.
 NVCC_FLAGS = (
@@ -42,6 +43,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
 
 def build_dir() -> Path:
@@ -121,8 +123,8 @@ def library() -> ctypes.CDLL:
     lib.sbdart_eig_n2_planar.restype = _I
     lib.sbdart_radsrc.argtypes = [_P] * 17 + [_I] * 4 + [_P, _P]
     lib.sbdart_radsrc.restype = _I
-    lib.sbdart_eig_beam.argtypes = [_P] * 10 + [_I, _I, _I, _P, _P]
-    lib.sbdart_eig_beam.restype = _I
+    lib.sbdart_eig_beam_group.argtypes = [_P] * 10 + [_I] * 3 + [_P, _P]
+    lib.sbdart_eig_beam_group.restype = _I
     lib.sbdart_eig_chain.argtypes = [_P] * 5 + [_I, _I, _I, _P, _P]
     lib.sbdart_eig_chain.restype = _I
     lib.sbdart_block_thomas.argtypes = [_P] * 7 + [_I, _I, _I, _P]
@@ -135,20 +137,25 @@ def library() -> ctypes.CDLL:
     lib.sbdart_blocktri_rt_fwd.restype = _I
     lib.sbdart_blocktri_rt_bwd.argtypes = [_P] * 6 + [_I, _I, _I, _P]
     lib.sbdart_blocktri_rt_bwd.restype = _I
-    lib.sbdart_blocktri_rt_fwd_group.argtypes = [_P] * 7 + [_I, _I, _I, _P]
+    lib.sbdart_blocktri_rt_fwd_group.argtypes = [_P] * 8 + [_I, _I, _I, _P]
     lib.sbdart_blocktri_rt_fwd_group.restype = _I
     lib.sbdart_blocktri_rt_bwd_group.argtypes = [_P] * 6 + [_I, _I, _I, _P]
     lib.sbdart_blocktri_rt_bwd_group.restype = _I
-    lib.sbdart_blocktri_rt_group.argtypes = [_P] * 8 + [_I, _I, _I, _P]
+    lib.sbdart_blocktri_rt_group.argtypes = [_P] * 9 + [_I, _I, _I, _P]
     lib.sbdart_blocktri_rt_group.restype = _I
-    lib.sbdart_block_thomas_group.argtypes = [_P] * 7 + [_I, _I, _I, _P]
+    lib.sbdart_block_thomas_group.argtypes = [_P] * 8 + [_I, _I, _I, _P]
     lib.sbdart_block_thomas_group.restype = _I
     lib.sbdart_blocktri_rt_streamed_group_bytes.argtypes = [_I, _I]
     lib.sbdart_blocktri_rt_streamed_group_bytes.restype = _I
-    lib.sbdart_blocktri_rt_group_bytes.argtypes = [_I]
+    lib.sbdart_blocktri_rt_group_bytes.argtypes = [_I, _I]
     lib.sbdart_blocktri_rt_group_bytes.restype = _I
-    lib.sbdart_block_thomas_group_bytes.argtypes = [_I]
+    lib.sbdart_block_thomas_group_bytes.argtypes = [_I, _I]
     lib.sbdart_block_thomas_group_bytes.restype = _I
+    for name in ("blocktri_rt_group", "blocktri_rt_fwd_group",
+                 "block_thomas_group"):
+        fn = getattr(lib, f"sbdart_{name}_scratch")
+        fn.argtypes = [_I, _I]
+        fn.restype = _L
     lib.sbdart_cuda_error_string.argtypes = [_I]
     lib.sbdart_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -156,9 +163,11 @@ def library() -> ctypes.CDLL:
 
 def require_shared_memory(name: str, column_bytes, size: int, device,
                           what: str = "N") -> None:
-    """A group kernel holds one column's system in shared memory: raise a
-    ValueError naming the card's opt-in limit where `column_bytes(size)`
-    exceeds it, and the largest size that fits."""
+    """A group kernel holds at least one column's system in shared memory
+    (the rest of the column moves to device scratch where it does not fit
+    beside it): raise a ValueError naming the card's opt-in limit where
+    `column_bytes(size)`, the system's bytes, exceeds it, and the largest
+    size that fits."""
     import torch
 
     limit = torch.cuda.get_device_properties(
@@ -173,6 +182,23 @@ def require_shared_memory(name: str, column_bytes, size: int, device,
         f"{name}: one column's system at {what} = {size} takes {need} bytes "
         f"of shared memory, above the card's opt-in limit of {limit} bytes "
         f"a block; the kernel takes {what} up to {top}")
+
+
+def group_scratch(lib, entry: str, size: int, ncol: int, device):
+    """The device scratch of a group kernel's far instance (`entry`'s
+    floats for ncol columns at N or m = size), or None where one column
+    fits in shared memory and the near instance runs."""
+    import torch
+
+    floats = getattr(lib, f"{entry}_scratch")(size, ncol)
+    if floats <= 0:
+        return None
+    return torch.empty(floats, device=device, dtype=torch.float32)
+
+
+def ptr(t) -> int | None:
+    """A tensor's device pointer, or NULL for None."""
+    return None if t is None else t.data_ptr()
 
 
 def check(code: int, what: str) -> None:

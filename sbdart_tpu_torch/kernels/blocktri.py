@@ -63,9 +63,14 @@ def _launch(name, entry, diag, lower, upper, rhs):
     ins = [t.contiguous() for t in (diag, lower, upper, rhs)]
     _build.require_cuda_f32(name, *ins)
     lib = _build.library()
+    extra, scratch = [], None
     if entry == "sbdart_block_thomas_group":
-        _build.require_shared_memory(name, lib.sbdart_block_thomas_group_bytes,
-                                     m, diag.device, what="m")
+        _build.require_shared_memory(
+            name, lambda k: lib.sbdart_block_thomas_group_bytes(k, 1), m,
+            diag.device, what="m")
+        # held until the launch is queued: its memory must not go to ws
+        scratch = _build.group_scratch(lib, entry, m, b, diag.device)
+        extra = [_build.ptr(scratch)]
     new = dict(device=diag.device, dtype=torch.float32)
     ws = torch.empty((nlyr, m * m, b), **new)          # W history scratch
     ys = torch.empty((nlyr, m, b), **new)
@@ -74,7 +79,7 @@ def _launch(name, entry, diag, lower, upper, rhs):
         stream = torch.cuda.current_stream().cuda_stream
         code = getattr(lib, entry)(
             *(t.data_ptr() for t in ins), ws.data_ptr(), ys.data_ptr(),
-            xs.data_ptr(), nlyr, m, b, stream,
+            xs.data_ptr(), *extra, nlyr, m, b, stream,
         )
     _build.check(code, name)
     return xs

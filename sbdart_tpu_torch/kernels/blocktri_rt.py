@@ -1,7 +1,8 @@
 """B5: fused SETMTX + SOLVE0 for general n, block-Thomas over layers with
-the full W history: one thread per column at N = 1 to 8 (nstr 2 to 16,
-csrc/blocktri_rt.cuh), a group of lanes per column past that
-(csrc/blocktri_rt_group.cu, on the elimination core group_solve.cuh).
+the full W history: a group of lanes per column (csrc/blocktri_rt_group.cu,
+on the elimination core group_solve.cuh), except at the N of
+RT_ONE_THREAD_N, where one thread per column runs it
+(csrc/blocktri_rt.cu).
 
 Port of sbdart_tpu/pallas/blocktri.py:_rt_kernel (reached via
 block_thomas_rt for n >= 4, and at n = 2 where its planar tile does not
@@ -16,9 +17,8 @@ operator (blocktri.py:228-233):
 
 The forward sweep solves (diag - lower W_{l-1}) [W_l | y_l] = [upper |
 r - lower y_{l-1}] with `solve_step`; the backward sweep takes
-x_l = y_l - W_l x_{l+1}.  `block_thomas_rt` launches the CUDA kernel
-csrc/blocktri_rt.cu on CUDA tensors and runs `block_thomas_rt_plain` on
-CPU tensors.
+x_l = y_l - W_l x_{l+1}.  `block_thomas_rt` launches a CUDA kernel on
+CUDA tensors and runs `block_thomas_rt_plain` on CPU tensors.
 
 Inputs gp/gm [L, N, N, B], ee [L, N, B], refl [N, N, B], rhs [L, 2N, B];
 returns xs [L, 2N, B].
@@ -30,6 +30,12 @@ import torch
 
 from sbdart_tpu_torch.ops.lane import lmatmul as _mm
 from sbdart_tpu_torch.ops.lane import lmatvec as _mv
+
+# B5's design by N: the one-thread-per-column kernel (blocktri_rt.cu,
+# built at these N only) at these N, the group kernel
+# (blocktri_rt_group.cu) at every other N.  chip_smoke.py times both
+# designs at the shapes the main path gives B5 (PERF.md §6).
+RT_ONE_THREAD_N = frozenset({1, 2})
 
 
 def solve_step(dt, rhs_aug):
@@ -130,9 +136,14 @@ def _launch(name, entry, gp, gm, ee, refl, rhs):
     ins = [t.contiguous() for t in (gp, gm, ee, refl, rhs)]
     _build.require_cuda_f32(name, *ins)
     lib = _build.library()
+    extra, scratch = [], None
     if entry == "sbdart_blocktri_rt_group":
-        _build.require_shared_memory(name, lib.sbdart_blocktri_rt_group_bytes,
-                                     n, gp.device)
+        _build.require_shared_memory(
+            name, lambda k: lib.sbdart_blocktri_rt_group_bytes(k, 1), n,
+            gp.device)
+        # held until the launch is queued: its memory must not go to ws
+        scratch = _build.group_scratch(lib, entry, n, b, gp.device)
+        extra = [_build.ptr(scratch)]
     m = 2 * n
     new = dict(device=gp.device, dtype=torch.float32)
     ws = torch.empty((nlyr, m * m, b), **new)          # W history scratch
@@ -142,23 +153,22 @@ def _launch(name, entry, gp, gm, ee, refl, rhs):
         stream = torch.cuda.current_stream().cuda_stream
         code = getattr(lib, entry)(
             *(t.data_ptr() for t in ins), ws.data_ptr(), ys.data_ptr(),
-            xs.data_ptr(), nlyr, n, b, stream,
+            xs.data_ptr(), *extra, nlyr, n, b, stream,
         )
     _build.check(code, name)
     return xs
 
 
 def block_thomas_rt(gp, gm, ee, refl, rhs):
-    """B5 solve: the one-thread-per-column CUDA kernel on CUDA tensors at
-    N = 1 to 8 (float32 only), `block_thomas_rt_group` past N = 8, the
-    plain torch version on CPU tensors.  Shapes as in the module doc."""
+    """B5 solve on CUDA tensors (float32 only): the one-thread-per-column
+    kernel at the N of RT_ONE_THREAD_N, `block_thomas_rt_group` at every
+    other N; the plain torch version on CPU tensors.  Shapes as in the
+    module doc."""
     if gp.device.type == "cpu":
         return block_thomas_rt_plain(gp, gm, ee, refl, rhs)
     n = gp.shape[1]
-    if n > 8:
+    if n not in RT_ONE_THREAD_N:
         return block_thomas_rt_group(gp, gm, ee, refl, rhs)
-    if n < 1:
-        raise ValueError(f"block_thomas_rt: the kernel takes N >= 1, got {n}")
     xs = _launch("block_thomas_rt", "sbdart_blocktri_rt", gp, gm, ee, refl,
                  rhs)
     block_thomas_rt.launches += 1

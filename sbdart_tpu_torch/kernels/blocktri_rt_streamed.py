@@ -163,18 +163,21 @@ def _bwd_inputs(name, gp, gm, ee, cs, ys):
     return ins
 
 
-def _launch(name, entry, ins, outs, nlyr, n, b):
+def _launch(name, entry, ins, outs, nlyr, n, b, extra=()):
     from sbdart_tpu_torch.kernels import _build
 
     lib = _build.library()
     with torch.cuda.device(ins[0].device):
         stream = torch.cuda.current_stream().cuda_stream
         code = getattr(lib, entry)(
-            *(t.data_ptr() for t in ins + outs), nlyr, n, b, stream)
+            *(t.data_ptr() for t in ins + outs), *extra, nlyr, n, b, stream)
     _build.check(code, name)
 
 
 def _group_fits(name, kind, n, device):
+    """Refuse an N whose column does not fit the card's shared memory: for
+    the forward kernel (kind 2) its system, the rest moving to device
+    scratch past that; for the backward kernel (kind 1) the whole column."""
     from sbdart_tpu_torch.kernels import _build
 
     lib = _build.library()
@@ -193,13 +196,13 @@ def _group_fits(name, kind, n, device):
 FWD_ONE_THREAD_N = frozenset({1, 2, 3})
 
 
-def _fwd_kernel(name, entry, gp, gm, ee, refl, rhs):
+def _fwd_kernel(name, entry, gp, gm, ee, refl, rhs, extra=()):
     ins = _fwd_inputs(name, gp, gm, ee, refl, rhs)
     nlyr, n, _, b = gp.shape
     new = dict(device=gp.device, dtype=torch.float32)
     cs = torch.empty((nlyr, 2 * n, n, b), **new)
     ys = torch.empty((nlyr, 2 * n, b), **new)
-    _launch(name, entry, ins, [cs, ys], nlyr, n, b)
+    _launch(name, entry, ins, [cs, ys], nlyr, n, b, extra)
     return cs, ys
 
 
@@ -224,11 +227,16 @@ def block_thomas_rt_fwd_group(gp, gm, ee, refl, rhs):
     plain torch version on CPU tensors).  Returns (cs, ys)."""
     if gp.device.type == "cpu":
         return block_thomas_rt_fwd_plain(gp, gm, ee, refl, rhs)
+    from sbdart_tpu_torch.kernels import _build
+
     name = "block_thomas_rt_fwd_group"
-    _check_shapes(name, gp.shape[1], {}, ())
-    _group_fits(name, 0, gp.shape[1], gp.device)
-    out = _fwd_kernel(name, "sbdart_blocktri_rt_fwd_group", gp, gm, ee, refl,
-                      rhs)
+    entry = "sbdart_blocktri_rt_fwd_group"
+    nlyr, n, _, b = gp.shape
+    _check_shapes(name, n, {}, ())
+    _group_fits(name, 2, n, gp.device)
+    scratch = _build.group_scratch(_build.library(), entry, n, b, gp.device)
+    out = _fwd_kernel(name, entry, gp, gm, ee, refl, rhs,
+                      [_build.ptr(scratch)])
     block_thomas_rt_fwd_group.launches += 1
     return out
 

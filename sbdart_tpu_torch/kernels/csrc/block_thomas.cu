@@ -131,17 +131,31 @@ cudaError_t launch(const float* diag, const float* lower, const float* upper,
 // group of G = 32 lanes per column holds [dt | upper | rt] (m x (2m + 1),
 // a padded row stride) in shared memory, with the carry [W | y] and the
 // layer's diag, lower, upper and rhs, which the block copies in together
-// (cp.async, whole 32-byte sectors); m is a run-time argument.  Each
-// element is computed by one lane in the plain version's order.
+// (cp.async, whole 32-byte sectors); m is a run-time argument.  Past the
+// shared memory of one column (m = 98 on an H100) the far instance keeps
+// only the system there and the rest in the column's device scratch
+// (group_solve.cuh, "Placement").  Each element is computed by one lane in
+// the plain version's order.
 struct BtLayout {   // offsets in floats; [W | y] column-major
-  int w, aw, mp, wy, piv, dg, low, up, rl, floats;
-  __host__ __device__ explicit BtLayout(int m)
+  int w, aw, mp, a, wy, piv, dg, low, up, rl, near, far;
+  __host__ __device__ BtLayout(int m, bool f)
       : w(2 * m + 1), aw(sbdart_group::row_stride(2 * m + 1)),
-        mp(sbdart_group::pad4(m)), wy(m * aw), piv(wy + (m + 1) * mp),
-        dg(piv + mp), low(dg + m * m), up(low + m * m), rl(up + m * m),
-        floats(rl + m) {}
+        mp(sbdart_group::pad4(m)) {
+    using sbdart_group::pad4;
+    sbdart_group::Segments g;
+    a = g.put(false, m * aw);
+    wy = g.put(f, (m + 1) * mp);
+    piv = g.put(false, mp);
+    dg = g.put(f, pad4(m * m));
+    low = g.put(f, pad4(m * m));
+    up = g.put(f, pad4(m * m));
+    rl = g.put(f, mp);
+    near = g.near;
+    far = g.far;
+  }
 };
 
+template <bool kFar>
 __global__ void __launch_bounds__(256, 3) block_thomas_group_kernel(
     const float* __restrict__ diag,    // [L, m, m, B]
     const float* __restrict__ lower,   // [L, m, m, B]
@@ -150,29 +164,35 @@ __global__ void __launch_bounds__(256, 3) block_thomas_group_kernel(
     float* __restrict__ ws,            // [L, m^2, B] scratch: W history
     float* __restrict__ ys,            // [L, m, B]   scratch: y history
     float* __restrict__ xs,            // [L, m, B]
-    int nlyr, int m, int ncol, int stride) {
+    int nlyr, int m, int ncol, int stride,
+    float* far, int far_stride) {   // far segments (the far instance)
   extern __shared__ __align__(16) float smem[];
-  const BtLayout lay(m);
+  const BtLayout lay(m, kFar);
   const int w = lay.w, aw = lay.aw, mp = lay.mp;
   const int g = sbdart_group::group_size(m);
   const int lane = threadIdx.x & (g - 1);
   const sbdart_group::Block bk(g, ncol, stride);
   float* base = smem + (threadIdx.x / g) * stride;
-  float* a = base;
-  float* wy = base + lay.wy;
+  // the far segments of the block's columns, and this column's
+  float* fblock = kFar ? far + (long long)blockIdx.x * bk.cols * far_stride
+                       : smem;
+  const int fstride = kFar ? far_stride : stride;
+  float* fbase = fblock + (threadIdx.x / g) * fstride;
+  float* a = base + lay.a;
+  float* wy = fbase + lay.wy;
   int* piv = reinterpret_cast<int*>(base + lay.piv);
-  const float* dg = base + lay.dg;
-  const float* low = base + lay.low;
-  const float* up = base + lay.up;
-  const float* rl = base + lay.rl;
+  const float* dg = fbase + lay.dg;
+  const float* low = fbase + lay.low;
+  const float* up = fbase + lay.up;
+  const float* rl = fbase + lay.rl;
 
   for (int e = lane; e < (m + 1) * mp; e += g) wy[e] = 0.0f;
   for (int l = 0; l < nlyr; ++l) {
     const long long first = (long long)l * m * m;
-    bk.stage(smem, lay.dg, diag, first, m * m);
-    bk.stage(smem, lay.low, lower, first, m * m);
-    bk.stage(smem, lay.up, upper, first, m * m);
-    bk.stage(smem, lay.rl, rhs, (long long)l * m, m);
+    bk.stage_into<!kFar>(fblock, fstride, lay.dg, diag, first, m * m);
+    bk.stage_into<!kFar>(fblock, fstride, lay.low, lower, first, m * m);
+    bk.stage_into<!kFar>(fblock, fstride, lay.up, upper, first, m * m);
+    bk.stage_into<!kFar>(fblock, fstride, lay.rl, rhs, (long long)l * m, m);
     sbdart_group::stage_wait();
     sbdart_group::for_each(m, m, lane, g, [&](int i, int c) {
       const float* wc = wy + c * mp;
@@ -190,35 +210,48 @@ __global__ void __launch_bounds__(256, 3) block_thomas_group_kernel(
     __syncwarp();
     sbdart_group::solve(a, aw, w, m, wy, mp, piv, lane, g);
     __syncthreads();
-    bk.store(ws, first, m, m, smem, lay.wy, 1, mp);
-    bk.store(ys, (long long)l * m, m, 1, smem, lay.wy + m * mp, 1);
+    bk.store_from(ws, first, m, m, fblock, fstride, lay.wy, 1, mp);
+    bk.store_from(ys, (long long)l * m, m, 1, fblock, fstride,
+                  lay.wy + m * mp, 1);
     __syncthreads();
   }
-  sbdart_group::back_sweep(bk, smem, 0, ws, ys, xs, nlyr, m, lane, g);
+  sbdart_group::back_sweep(bk, smem, lay.a, m * aw, ws, ys, xs, nlyr, m,
+                           lane, g);
 }
 
 }  // namespace
 
-// Shared-memory bytes one column of B10's group kernel takes.
-extern "C" int sbdart_block_thomas_group_bytes(int m) {
+// Shared-memory bytes one column of B10's group kernel takes with every
+// region there (far = 0), or with the system alone (far = 1).
+extern "C" int sbdart_block_thomas_group_bytes(int m, int far) {
   return static_cast<int>(sizeof(float)) *
-         sbdart_group::column_stride(BtLayout(m).floats,
+         sbdart_group::column_stride(BtLayout(m, far != 0).near,
                                      sbdart_group::group_size(m));
+}
+
+// Floats of device scratch a launch over ncol columns needs (0 where one
+// column fits in shared memory).
+extern "C" long long sbdart_block_thomas_group_scratch(int m, int ncol) {
+  if (m < 1) return 0;
+  return sbdart_group::scratch_floats(sbdart_group::group_size(m),
+                                      BtLayout(m, false).near,
+                                      BtLayout(m, true).near,
+                                      BtLayout(m, true).far, ncol);
 }
 
 extern "C" int sbdart_block_thomas_group(const float* diag,
                                          const float* lower,
                                          const float* upper, const float* rhs,
                                          float* ws, float* ys, float* xs,
-                                         int nlyr, int m, int ncol,
-                                         cudaStream_t stream) {
+                                         float* scratch, int nlyr, int m,
+                                         int ncol, cudaStream_t stream) {
   if (nlyr <= 0 || ncol <= 0) return 0;
   if (m < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int stride = sbdart_group::column_stride(BtLayout(m).floats,
-                                                 sbdart_group::group_size(m));
   return static_cast<int>(sbdart_group::launch(
-      block_thomas_group_kernel, m, stride, ncol, stream, diag, lower, upper,
-      rhs, ws, ys, xs, nlyr, m, ncol, stride));
+      block_thomas_group_kernel<false>, block_thomas_group_kernel<true>,
+      sbdart_group::group_size(m), BtLayout(m, false).near, BtLayout(m, true).near, BtLayout(m, true).far,
+      scratch, ncol, stream, diag, lower, upper, rhs, ws, ys, xs, nlyr, m,
+      ncol));
 }
 
 extern "C" int sbdart_block_thomas(const float* diag, const float* lower,

@@ -21,7 +21,9 @@
 // other in one thread; here G lanes (8, 16 or 32 by 2N) share it in
 // shared memory, one row a lane, so a step is a shuffle reduction for
 // the pivot and one row update per lane; at N = 8, 6144 columns are 3072
-// warps.  A block holds 8 columns and moves each layer's operands into
+// warps.  Past the shared memory of one column (N = 52 on an H100) the
+// forward kernel's far instance keeps only the system there
+// (group_solve.cuh, "Placement").  A block holds 8 columns and moves each layer's operands into
 // shared memory (cp.async) and its results out together, a warp's
 // accesses whole 32-byte sectors of the column-minor planes.  Bytes:
 // (2N^2 + 3N) floats read and (2N^2 + 2N) written a layer and column.
@@ -40,24 +42,38 @@ using sbdart_group::for_each;
 using sbdart_group::group_size;
 using sbdart_group::pad4;
 using sbdart_group::row_stride;
+using sbdart_group::Segments;
 using sbdart_group::stage_wait;
 using sbdart_group::surface_row;
 
-// Offsets (floats) in one column's shared memory of the forward kernel,
-// each 16-byte aligned: [A | I | r] (2N rows, 3N+1 columns, padded), the
-// carry [C | y] column-major (N+1 columns of 2N, padded), lt_l (N rows of
-// 2N, padded), ub_{l-1} transposed (2N rows of N, padded), lt C (N rows
-// of N, padded), 2N ints of pivot rows, the surface operator R (N x N),
-// the bounds of surface_row (N row sums of |R|, 2N column sums of
-// |[gm e, gp]|), and the layer's gp, gm (N x N), ee (N), r (2N).
+// Offsets (floats) in one column's segments of the forward kernel, each
+// 16-byte aligned: [A | I | r] (2N rows, 3N+1 columns, padded), the carry
+// [C | y] column-major (N+1 columns of 2N, padded), lt_l (N rows of 2N,
+// padded), ub_{l-1} transposed (2N rows of N, padded), lt C (N rows of N,
+// padded), 2N ints of pivot rows, the surface operator R (N x N), the
+// bounds of surface_row (N row sums of |R|, 2N column sums of
+// |[gm e, gp]|), and the layer's gp, gm (N x N), ee (N), r (2N).  All in
+// shared memory (near), or (far) the system and the pivot rows there and
+// the rest in the column's device scratch.
 struct FwdLayout {
-  int m, w, aw, mp, np, cy, lt, ubt, tt, piv, rf, rs, gs, in, floats;
-  __host__ __device__ explicit FwdLayout(int n)
+  int m, w, aw, mp, np, a, cy, lt, ubt, tt, piv, rf, rs, gs, in, near, far;
+  __host__ __device__ FwdLayout(int n, bool f)
       : m(2 * n), w(3 * n + 1), aw(row_stride(3 * n + 1)), mp(pad4(2 * n)),
-        np(pad4(n)), cy(2 * n * aw), lt(cy + (n + 1) * mp), ubt(lt + n * mp),
-        tt(ubt + 2 * n * np), piv(tt + n * np), rf(piv + pad4(2 * n)),
-        rs(rf + pad4(n * n)), gs(rs + pad4(n)), in(gs + pad4(2 * n)),
-        floats(in + pad4(2 * n * n + 3 * n)) {}
+        np(pad4(n)) {
+    Segments g;
+    a = g.put(false, m * aw);
+    cy = g.put(f, (n + 1) * mp);
+    lt = g.put(f, n * mp);
+    ubt = g.put(f, m * np);
+    tt = g.put(f, n * np);
+    piv = g.put(false, pad4(m));
+    rf = g.put(f, pad4(n * n));
+    rs = g.put(f, pad4(n));
+    gs = g.put(f, pad4(m));
+    in = g.put(f, pad4(2 * n * n + 3 * n));
+    near = g.near;
+    far = g.far;
+  }
 };
 
 // The backward kernel's: x_{l+1}, x_l (2N each), z (N), and the layer's
@@ -69,6 +85,7 @@ struct BwdLayout {
         floats(5 * n + 4 * n * n + 3 * n) {}
 };
 
+template <bool kFar>
 __global__ void __launch_bounds__(256, 3) blocktri_rt_fwd_group_kernel(
     const float* __restrict__ gp,     // [L, N, N, B]
     const float* __restrict__ gm,     // [L, N, N, B]
@@ -77,32 +94,41 @@ __global__ void __launch_bounds__(256, 3) blocktri_rt_fwd_group_kernel(
     const float* __restrict__ rhs,    // [L, 2N, B]
     float* __restrict__ cs,           // [L, 2N, N, B]
     float* __restrict__ ys,           // [L, 2N, B]
-    int nlyr, int n, int ncol, int stride) {
+    int nlyr, int n, int ncol, int stride,
+    float* far, int far_stride) {   // far segments (the far instance)
   extern __shared__ __align__(16) float smem[];
-  const FwdLayout lay(n);
+  const FwdLayout lay(n, kFar);
   const int m = lay.m, w = lay.w, aw = lay.aw, mp = lay.mp, np = lay.np;
   const int g = group_size(m);
   const int lane = threadIdx.x & (g - 1);
   const Block bk(g, ncol, stride);
   float* base = smem + (threadIdx.x / g) * stride;
-  float* a = base;
-  float* cy = base + lay.cy;   // column t of [C | y] at cy + t * mp
-  float* lt = base + lay.lt;   // row i of lt_l at lt + i * mp
-  float* ubt = base + lay.ubt;   // column c of ub_{l-1} at ubt + c * np
-  float* tt = base + lay.tt;   // row i of lt_l C_{l-1} at tt + i * np
+  // the far segments of the block's columns, and this column's
+  float* fblock = kFar ? far + (long long)blockIdx.x * bk.cols * far_stride
+                       : smem;
+  const int fstride = kFar ? far_stride : stride;
+  float* fbase = fblock + (threadIdx.x / g) * fstride;
+  float* a = base + lay.a;
+  float* cy = fbase + lay.cy;   // column t of [C | y] at cy + t * mp
+  float* lt = fbase + lay.lt;   // row i of lt_l at lt + i * mp
+  float* ubt = fbase + lay.ubt;   // column c of ub_{l-1} at ubt + c * np
+  float* tt = fbase + lay.tt;   // row i of lt_l C_{l-1} at tt + i * np
   int* piv = reinterpret_cast<int*>(base + lay.piv);
-  const float* rf = base + lay.rf;
-  float* rsum = base + lay.rs;
-  float* gsum = base + lay.gs;
-  const float* gpl = base + lay.in;
+  const float* rf = fbase + lay.rf;
+  float* rsum = fbase + lay.rs;
+  float* gsum = fbase + lay.gs;
+  const float* gpl = fbase + lay.in;
   const float* gml = gpl + n * n;
   const float* eel = gml + n * n;
   const float* rl = eel + n;
+  auto stage = [&](int off, const float* src, long long first, int count) {
+    bk.stage_into<!kFar>(fblock, fstride, off, src, first, count);
+  };
   auto fetch = [&](int l) {
-    bk.stage(smem, lay.in, gp, (long long)l * n * n, n * n);
-    bk.stage(smem, lay.in + n * n, gm, (long long)l * n * n, n * n);
-    bk.stage(smem, lay.in + 2 * n * n, ee, (long long)l * n, n);
-    bk.stage(smem, lay.in + 2 * n * n + n, rhs, (long long)l * m, m);
+    stage(lay.in, gp, (long long)l * n * n, n * n);
+    stage(lay.in + n * n, gm, (long long)l * n * n, n * n);
+    stage(lay.in + 2 * n * n, ee, (long long)l * n, n);
+    stage(lay.in + 2 * n * n + n, rhs, (long long)l * m, m);
   };
   // the next layer's lt, -s [gm_l e_l, gp_l], from this layer's operands
   auto next_lt = [&](float sgn) {
@@ -113,7 +139,7 @@ __global__ void __launch_bounds__(256, 3) blocktri_rt_fwd_group_kernel(
   };
 
   fetch(0);
-  bk.stage(smem, lay.rf, refl, 0, n * n);
+  stage(lay.rf, refl, 0, n * n);
   for (int e = lane; e < (n + 1) * mp; e += g) cy[e] = 0.0f;
   stage_wait();
   for (int i = lane; i < n; i += g) {
@@ -180,8 +206,10 @@ __global__ void __launch_bounds__(256, 3) blocktri_rt_fwd_group_kernel(
     next_lt(-1.0f);   // lt_l is read no more
     sbdart_group::solve(a, aw, w, m, cy, mp, piv, lane, g);
     __syncthreads();
-    bk.store(cs, (long long)l * m * n, m, n, smem, lay.cy, 1, mp);
-    bk.store(ys, (long long)l * m, m, 1, smem, lay.cy + n * mp, 1);
+    bk.store_from(cs, (long long)l * m * n, m, n, fblock, fstride, lay.cy, 1,
+                  mp);
+    bk.store_from(ys, (long long)l * m, m, 1, fblock, fstride,
+                  lay.cy + n * mp, 1);
     __syncthreads();
   }
 }
@@ -193,7 +221,7 @@ __global__ void __launch_bounds__(256, 3) blocktri_rt_bwd_group_kernel(
     const float* __restrict__ cs,     // [L, 2N, N, B]
     const float* __restrict__ ys,     // [L, 2N, B]
     float* __restrict__ xs,           // [L, 2N, B]
-    int nlyr, int n, int ncol, int stride) {
+    int nlyr, int n, int ncol, int stride, float*, int) {
   extern __shared__ __align__(16) float smem[];
   const BwdLayout lay(n);
   const int m = lay.m;
@@ -250,33 +278,50 @@ __global__ void __launch_bounds__(256, 3) blocktri_rt_bwd_group_kernel(
 }  // namespace
 
 // Shared-memory bytes one column of a group kernel takes: kind 0 B6
-// forward, 1 B6 backward (the B5 and B10 kinds are in their own sources).
+// forward with every region there, 2 B6 forward's far instance (the
+// system alone), 1 B6 backward (the B5 and B10 kinds are in their own
+// sources).
 extern "C" int sbdart_blocktri_rt_streamed_group_bytes(int kind, int n) {
-  const int floats = kind == 0 ? FwdLayout(n).floats : BwdLayout(n).floats;
+  const int floats = kind == 1 ? BwdLayout(n).floats
+                               : FwdLayout(n, kind == 2).near;
   return static_cast<int>(sizeof(float)) *
          column_stride(floats, group_size(2 * n));
 }
 
-extern "C" int sbdart_blocktri_rt_fwd_group(
-    const float* gp, const float* gm, const float* ee, const float* refl,
-    const float* rhs, float* cs, float* ys, int nlyr, int n, int ncol,
-    cudaStream_t stream) {
-  if (nlyr <= 0 || ncol <= 0) return 0;
-  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int stride = column_stride(FwdLayout(n).floats, group_size(2 * n));
-  return static_cast<int>(sbdart_group::launch(
-      blocktri_rt_fwd_group_kernel, 2 * n, stride, ncol, stream, gp, gm, ee,
-      refl, rhs, cs, ys, nlyr, n, ncol, stride));
+// Floats of device scratch B6 forward's launch over ncol columns needs (0
+// where one column fits in shared memory).
+extern "C" long long sbdart_blocktri_rt_fwd_group_scratch(int n, int ncol) {
+  if (n < 1) return 0;
+  return sbdart_group::scratch_floats(group_size(2 * n),
+                                      FwdLayout(n, false).near,
+                                      FwdLayout(n, true).near,
+                                      FwdLayout(n, true).far, ncol);
 }
 
+extern "C" int sbdart_blocktri_rt_fwd_group(
+    const float* gp, const float* gm, const float* ee, const float* refl,
+    const float* rhs, float* cs, float* ys, float* scratch, int nlyr, int n,
+    int ncol, cudaStream_t stream) {
+  if (nlyr <= 0 || ncol <= 0) return 0;
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(sbdart_group::launch(
+      blocktri_rt_fwd_group_kernel<false>, blocktri_rt_fwd_group_kernel<true>,
+      group_size(2 * n), FwdLayout(n, false).near, FwdLayout(n, true).near,
+      FwdLayout(n, true).far, scratch, ncol, stream, gp, gm, ee, refl, rhs, cs,
+      ys, nlyr, n, ncol));
+}
+
+// The backward kernel's column always fits where the forward's system does
+// (4N^2 + 8N floats against ~6N^2): one instance, run as both.
 extern "C" int sbdart_blocktri_rt_bwd_group(
     const float* gp, const float* gm, const float* ee, const float* cs,
     const float* ys, float* xs, int nlyr, int n, int ncol,
     cudaStream_t stream) {
   if (nlyr <= 0 || ncol <= 0) return 0;
   if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int stride = column_stride(BwdLayout(n).floats, group_size(2 * n));
+  const int floats = BwdLayout(n).floats;
   return static_cast<int>(sbdart_group::launch(
-      blocktri_rt_bwd_group_kernel, 2 * n, stride, ncol, stream, gp, gm, ee,
-      cs, ys, xs, nlyr, n, ncol, stride));
+      blocktri_rt_bwd_group_kernel, blocktri_rt_bwd_group_kernel,
+      group_size(2 * n), floats, floats, 0, nullptr, ncol, stream, gp, gm, ee, cs, ys, xs, nlyr,
+      n, ncol));
 }

@@ -6,7 +6,7 @@
 // eig_chain_lane_fused): alpha -+ beta, the sqrt(mu w) congruence, the
 // ridged Cholesky, L^T S+ L, 3 sweeps of parallel-ordered Jacobi at N >= 4
 // or the closed-form half-angle 2x2 eigh at N = 2, the triangular solve
-// and G+-, all in eig_chain.cuh, which B4 (eig_beam.cu) shares.  No sort.
+// and G+-, all in eig_chain.cuh.  No sort.
 //
 // What bounds it on Hopper: arithmetic and local memory, as B4's chain.  A
 // lane reads 2 N^2 floats and writes 2 N^2 + N; at N = 8 it does ~11k

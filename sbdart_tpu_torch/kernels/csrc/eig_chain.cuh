@@ -1,6 +1,7 @@
-// The general-n eigen chain (SOLEIG) of one (layer, column), shared by B4
-// (eig_beam.cu: chain + beam solve, N = 4, 6, 8) and B9 (eig_chain.cu:
-// chain only, N = 2, 4, 6, 8).
+// The general-n eigen chain (SOLEIG) of one (layer, column) in one
+// thread, B9's (eig_chain.cu: chain only, N = 2, 4, 6, 8).  B4 runs the
+// same chain on a lane group (eig_group.cuh); its constants block
+// (EigChainConsts) is shared.
 //
 // Mirrors sbdart_tpu/pallas/eig.py:_eig_chain_core (with _chol_inline,
 // _leigh_inline, _solve_ut_inline) and its plain torch twin

@@ -1,6 +1,7 @@
 // Branchless-in-effect partial-pivoted Gaussian elimination of one small
-// dense system per thread, shared by B4 (eig_beam.cu, the beam solve) and
-// B5 (blocktri_rt.cu, the per-layer block solve).
+// dense system per thread, shared by the one-thread kernels of B5
+// (blocktri_rt.cu), B6 (blocktri_rt_streamed.cuh) and B10
+// (block_thomas.cu).
 //
 // Mirrors sbdart_tpu/pallas/blocktri.py:_solve_step and its plain torch
 // twin sbdart_tpu_torch/kernels/blocktri_rt.py:solve_step: implicit

@@ -10,8 +10,10 @@ reduced beam system
     D = (r1 - (a-b) S) mu0 ;  Z+- = (S +- D)/2
 
 solved by shrinking implicit-pivot elimination (kernels/blocktri_rt.py:
-solve_step).  `eig_beam_chain` launches the CUDA kernel csrc/eig_beam.cu
-on CUDA tensors and runs `eig_beam_chain_plain` on CPU tensors.
+solve_step).  `eig_beam_chain` launches the CUDA kernel
+csrc/eig_beam_group.cu (a group of lanes per (layer, column), lane i on
+row i; the chain in csrc/eig_group.cuh) on CUDA tensors and runs
+`eig_beam_chain_plain` on CPU tensors.
 
 `eig_beam_chain_lane` is the flat entry of the radiance path
 (pallas/eig.py:473-501), a one-layer view of the same kernel.
@@ -75,6 +77,9 @@ def eig_beam_chain(cppl, cpml, r1, r2, mu0, mu, w):
     if n not in (4, 6, 8):
         raise ValueError(f"eig_beam_chain: the kernel takes N = 4, 6 or 8, "
                          f"got {n}")
+    if nlyr > 65535:
+        raise ValueError(f"eig_beam_chain: the kernel takes at most 65535 "
+                         f"layers a launch, got {nlyr}")
     want = {"cppl": (nlyr, n, n, b), "cpml": (nlyr, n, n, b),
             "r1": (nlyr, n, b), "r2": (nlyr, n, b)}
     for name, t in zip(want, (cppl, cpml, r1, r2)):
@@ -97,7 +102,7 @@ def eig_beam_chain(cppl, cpml, r1, r2, mu0, mu, w):
     lib = _build.library()
     with torch.cuda.device(cppl.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.sbdart_eig_beam(
+        code = lib.sbdart_eig_beam_group(
             *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
             nlyr, n, b, consts.ctypes.data, stream,
         )

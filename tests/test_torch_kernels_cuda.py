@@ -11,10 +11,11 @@ Bar: the reference's compiled-kernel bar, rtol 1e-4 / atol 1e-5
 and 8; B6: 65 layers x 6144 columns at N = 4, 6 and 8; B5/B6 at N = 2:
 65 layers x 49152 columns; B7 on the radiance path's operands at nstr 16
 (65 layers x 256 columns), 12, 8 and 4; B8 at 4 modes x 33 layers x 4096
-columns; B4 on the flat radiance lane axis) and an unaligned 130.  The kernels are built with --fmad=false and
-follow their plain versions' operation order, so they agree to the last
-bit on the H100 (B1/B2 measured max |error| 0.0, NVIDIA H100 80GB HBM3 at
-700 W).
+columns; B4 on the flat radiance lane axis) and an unaligned 130.  The
+kernels are built with --fmad=false and follow their plain versions'
+operation order, so they agree to the last bit on the H100: B4 and the
+group kernels are held to equality here, NaN positions included (a NaN
+injected in one column).
 """
 
 import pytest
@@ -95,20 +96,35 @@ def test_eig_n2_scatter_kernel_matches_plain(cuda_device, ncol):
         _assert_close(g, w, name)
 
 
+def _nan_column(t, col, layer=1):
+    """A copy of a column-minor operand [L, ..., B] with NaN in one
+    element of column `col` (layer `layer`, or the last)."""
+    t = t.clone()
+    idx = (min(layer, t.shape[0] - 1),) + (0,) * (t.dim() - 2) + (col,)
+    t[idx] = float("nan")
+    return t
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("nstr", [8, 12, 16])
 @pytest.mark.parametrize("ncol", [6144, 130])
 def test_eig_beam_kernel_matches_plain(cuda_device, nstr, ncol):
+    """B4 (the group kernel) at N = 4, 6, 8 on the flux path's layered
+    operands (33 layers), equal to its plain version with a NaN in one
+    column's C^pp."""
     from sbdart_tpu_torch.kernels.eig_beam import (
         eig_beam_chain, eig_beam_chain_plain)
 
     ops, _ = _general(ncol, nstr, cuda_device)
+    ops = (_nan_column(ops[0], ncol // 2),) + tuple(ops[1:])
     before = eig_beam_chain.launches
     got = eig_beam_chain(*ops)
     torch.cuda.synchronize()
     assert eig_beam_chain.launches == before + 1
-    for name, g, w in zip(NAMES, got, eig_beam_chain_plain(*ops)):
-        _assert_close(g, w, name)
+    want = eig_beam_chain_plain(*ops)
+    for name, g, w in zip(NAMES, got, want):
+        _assert_equal(g, w, name)
+    assert bool(torch.isnan(got[0]).any())
 
 
 @pytest.mark.cuda
@@ -119,11 +135,42 @@ def test_blocktri_rt_kernel_matches_plain(cuda_device, nstr, ncol):
         block_thomas_rt, block_thomas_rt_plain)
 
     _, ops = _general(ncol, nstr, cuda_device)
-    before = block_thomas_rt.launches
+    before = _rt_launches()
     got = block_thomas_rt(*ops)
     torch.cuda.synchronize()
-    assert block_thomas_rt.launches == before + 1
+    assert _rt_launches() == before + 1
     _assert_close(got, block_thomas_rt_plain(*ops), "xs")
+
+
+def _rt_launches():
+    """Launches of B5's two kernels (the design by N of
+    blocktri_rt.RT_ONE_THREAD_N)."""
+    from sbdart_tpu_torch.kernels.blocktri_rt import (
+        block_thomas_rt, block_thomas_rt_group)
+
+    return block_thomas_rt.launches + block_thomas_rt_group.launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6, 7, 8, 9])
+@pytest.mark.parametrize("ncol", [6144, 130])
+def test_blocktri_rt_routes_each_n(cuda_device, n, ncol):
+    """B5 through block_thomas_rt's route at N = 1 to 9 (33 layers), equal
+    to its plain version with the NaN column; the launch counters show
+    the body RT_ONE_THREAD_N names ran."""
+    from sbdart_tpu_torch.kernels.blocktri_rt import (
+        RT_ONE_THREAD_N, block_thomas_rt, block_thomas_rt_group,
+        block_thomas_rt_plain)
+
+    ops = _bvp_operands(n, 33, ncol, cuda_device)
+    before = (block_thomas_rt.launches, block_thomas_rt_group.launches)
+    got = block_thomas_rt(*ops)
+    torch.cuda.synchronize()
+    one = n in RT_ONE_THREAD_N
+    assert (block_thomas_rt.launches, block_thomas_rt_group.launches) == (
+        before[0] + one, before[1] + (not one))
+    _assert_equal(got, block_thomas_rt_plain(*ops), "xs")
+    assert bool(torch.isnan(got).any())
 
 
 @pytest.mark.cuda
@@ -178,13 +225,13 @@ def test_bvp_kernels_at_n2_match_plain(cuda_device, ncol):
 
     prob = chip_smoke.flux_problem(ncol, 1, 65, cuda_device)
     *_, ops = chip_smoke.kernel_operands(prob)
-    before = block_thomas_rt.launches
+    before = _rt_launches()
     got = block_thomas_rt(*ops)
     cs, ys = block_thomas_rt_fwd(*ops)
     cs_p, ys_p = block_thomas_rt_fwd_plain(*ops)
     xs = block_thomas_rt_bwd(*ops[:3], cs_p, ys_p)
     torch.cuda.synchronize()
-    assert block_thomas_rt.launches == before + 1
+    assert _rt_launches() == before + 1
     _assert_close(got, block_thomas_rt_plain(*ops), "xs (B5)")
     _assert_close(cs, cs_p, "cs")
     _assert_close(ys, ys_p, "ys")
@@ -230,20 +277,28 @@ def test_eig_n2_planar_kernel_matches_plain(cuda_device, lanes):
 
 
 @pytest.mark.cuda
-def test_eig_beam_flat_entry_matches_plain(cuda_device):
-    """B4 on the flat radiance lane axis (16 modes x 65 layers x 256)."""
+@pytest.mark.parametrize("nstr", [8, 12, 16])
+@pytest.mark.parametrize("lanes", [6144, 130])
+def test_eig_beam_flat_entry_matches_plain(cuda_device, nstr, lanes):
+    """B4 on the flat radiance lane axis (nstr modes x 33 layers x 64
+    band-columns), its first 6144 and 130 lanes, equal to the plain
+    version with a NaN in one lane's C^pp."""
     from sbdart_tpu_torch.kernels.eig_beam import (
         eig_beam_chain, eig_beam_chain_lane)
 
-    (cppl, cpml, r1, r2, mu0, tab), _ = _radiance(16, 65, 256, cuda_device)[
+    (cppl, cpml, r1, r2, mu0, tab), _ = _radiance(nstr, 33, 64, cuda_device)[
         "eig_beam_chain_lane"]
+    cppl, cpml, r1, r2 = (x[..., :lanes].contiguous()
+                          for x in (cppl, cpml, r1, r2))
+    mu0 = mu0[..., :lanes].contiguous()
+    cppl = _nan_column(cppl[None], lanes // 2)[0]
     before = eig_beam_chain.launches
     got = eig_beam_chain_lane(cppl, cpml, r1, r2, mu0, tab)
     torch.cuda.synchronize()
     assert eig_beam_chain.launches == before + 1
     want = eig_beam_chain_lane(cppl, cpml, r1, r2, mu0, tab, kernels=False)
     for name, g, w in zip(NAMES, got, want):
-        _assert_close(g, w, name)
+        _assert_equal(g, w, name)
 
 
 @pytest.mark.cuda
@@ -375,14 +430,13 @@ def test_bvp_kernels_at_odd_n_match_plain(cuda_device, nstr, cols):
 
     bvp, _ = _generic(nstr, 640, 9, cuda_device, onlyfl=True)["solve_bvp"]
     ops = tuple(x[..., :cols].contiguous() for x in bvp)
-    before = (block_thomas_rt.launches, _fwd_launches(),
-              block_thomas_rt_bwd.launches)
+    before = (_rt_launches(), _fwd_launches(), block_thomas_rt_bwd.launches)
     got = block_thomas_rt(*ops)
     cs, ys = block_thomas_rt_fwd(*ops)
     cs_p, ys_p = block_thomas_rt_fwd_plain(*ops)
     xs = block_thomas_rt_bwd(*ops[:3], cs_p, ys_p)
     torch.cuda.synchronize()
-    assert (block_thomas_rt.launches, _fwd_launches(),
+    assert (_rt_launches(), _fwd_launches(),
             block_thomas_rt_bwd.launches) == tuple(b + 1 for b in before)
     _assert_close(got, block_thomas_rt_plain(*ops), "xs (B5)")
     _assert_close(cs, cs_p, "cs")
@@ -412,15 +466,21 @@ def test_generic_solve_kernels_match_plain(cuda_device, nstr, kw, kernel,
 
     module = {"block_thomas_rt": "blocktri_rt", "eig_chain": "eig_chain",
               "eig_beam_chain": "eig_beam", "block_thomas": "blocktri"}[kernel]
-    wrapper = getattr(importlib.import_module(
-        f"sbdart_tpu_torch.kernels.{module}"), kernel)
+    if kernel == "block_thomas_rt":
+        launches = _rt_launches
+    else:
+        wrapper = getattr(importlib.import_module(
+            f"sbdart_tpu_torch.kernels.{module}"), kernel)
+
+        def launches():
+            return wrapper.launches
     args, kw = chip_smoke.generic_problem(130, 1, 9, cuda_device, nstr=nstr,
                                           **kw)
-    before = wrapper.launches
+    before = launches()
     got = solve_rte(*args, dtype=torch.float32, bvp_method=bvp, **kw)
     want = solve_rte(*args, dtype=torch.float32, eig_method="plain",
                      bvp_method=bvp, **kw)
-    assert wrapper.launches > before
+    assert launches() > before
     for name in ("uu", "rfldir", "rfldn", "flup", "uavg", "dfdt"):
         g, w = getattr(got, name), getattr(want, name)
         if w is None:
@@ -553,27 +613,127 @@ def test_group_bvp_kernels_match_plain(cuda_device, n, ncol):
     _assert_equal(got, block_thomas_plain(*blocks), "xs (B10)")
 
 
+def _first_refused(column_bytes, optin, start=1):
+    """The first size whose column_bytes exceed the card's opt-in shared
+    memory a block."""
+    size = start
+    while column_bytes(size) <= optin:
+        size += 1
+    return size
+
+
+def _group_limits(device):
+    """{kernel: (first N or m refused with every region in shared memory,
+    first refused with only the system there)} from the kernels' *_bytes
+    entry points and the card's opt-in limit."""
+    from sbdart_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    optin = torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin
+    rt, st, bt = (lib.sbdart_blocktri_rt_group_bytes,
+                  lib.sbdart_blocktri_rt_streamed_group_bytes,
+                  lib.sbdart_block_thomas_group_bytes)
+    return {
+        "b5": tuple(_first_refused(lambda n, f=f: rt(n, f), optin)
+                    for f in (0, 1)),
+        "b6": tuple(_first_refused(lambda n, k=k: st(k, n), optin)
+                    for k in (0, 2)),
+        "b10": tuple(_first_refused(lambda m, f=f: bt(m, f), optin)
+                     for f in (0, 1)),
+    }
+
+
+def _group_case(kernel, size, device, ncol=3):
+    """Run one group kernel at N (m for B10) = size on 3 layers x ncol
+    columns with the NaN column, against its plain version."""
+    from sbdart_tpu_torch.kernels import blocktri_rt_streamed as b6
+    from sbdart_tpu_torch.kernels.blocktri import (
+        block_thomas_group, block_thomas_plain)
+    from sbdart_tpu_torch.kernels.blocktri_rt import (
+        block_thomas_rt_group, block_thomas_rt_plain)
+    from sbdart_tpu_torch.solver.bvp import assemble_blocks
+
+    if kernel == "b5":
+        ops = _bvp_operands(size, 3, ncol, device)
+        got = block_thomas_rt_group(*ops)
+        torch.cuda.synchronize()
+        _assert_equal(got, block_thomas_rt_plain(*ops), "xs (B5)")
+    elif kernel == "b6":
+        ops = _bvp_operands(size, 3, ncol, device)
+        cs, ys = b6.block_thomas_rt_fwd_group(*ops)
+        cs_p, ys_p = b6.block_thomas_rt_fwd_plain(*ops)
+        xs = b6.block_thomas_rt_bwd_group(*ops[:3], cs_p, ys_p)
+        torch.cuda.synchronize()
+        _assert_equal(cs, cs_p, "cs")
+        _assert_equal(ys, ys_p, "ys")
+        _assert_equal(xs, b6.block_thomas_rt_bwd_plain(*ops[:3], cs_p, ys_p),
+                      "xs (B6)")
+        got = ys
+    else:
+        ops = _bvp_operands(size // 2, 3, ncol, device)
+        blocks = tuple(x.contiguous() for x in (*assemble_blocks(*ops[:4]),
+                                                ops[4]))
+        got = block_thomas_group(*blocks)
+        torch.cuda.synchronize()
+        _assert_equal(got, block_thomas_plain(*blocks), "xs (B10)")
+    assert bool(torch.isnan(got).any())
+
+
 @pytest.mark.cuda
-def test_group_kernels_refuse_past_shared_memory(cuda_device):
-    """Where one column's system no longer fits the card's opt-in shared
-    memory, the group kernels' wrappers refuse it and name the limit."""
+@pytest.mark.parametrize("kernel", ["b5", "b6", "b10"])
+def test_group_kernels_refuse_past_shared_memory(cuda_device, kernel):
+    """Past the N whose whole column fills the card's opt-in shared memory
+    (the first refused before the far placement), each group kernel runs
+    its far instance -- the system in shared memory, the rest in device
+    scratch -- and equals its plain version, NaN column included: at that
+    first refused N and at nstr = 128 (N = 64; m = 128 for B10).  The
+    wrappers refuse only where the system alone does not fit, naming the
+    limit."""
     from sbdart_tpu_torch.kernels import blocktri_rt_streamed as b6
     from sbdart_tpu_torch.kernels.blocktri import block_thomas_group
     from sbdart_tpu_torch.kernels.blocktri_rt import block_thomas_rt_group
     from sbdart_tpu_torch.solver.bvp import assemble_blocks
 
-    ops = _bvp_operands(80, 2, 1, cuda_device)
-    with pytest.raises(ValueError, match="shared memory.*N up to"):
-        b6.block_thomas_rt_fwd_group(*ops)
-    with pytest.raises(ValueError, match="shared memory.*N up to"):
-        block_thomas_rt_group(*ops)
-    blocks = (*assemble_blocks(*ops[:4]), ops[4])
-    with pytest.raises(ValueError, match="shared memory.*m up to"):
-        block_thomas_group(*blocks)
-    # the limit lies past N = 24 (nstr 48) for every group kernel
-    ops = _bvp_operands(24, 2, 3, cuda_device)
-    hist = b6.block_thomas_rt_fwd_group(*ops)
-    b6.block_thomas_rt_bwd_group(*ops[:3], *hist)
-    block_thomas_rt_group(*ops)
-    block_thomas_group(*assemble_blocks(*ops[:4]), ops[4])
-    torch.cuda.synchronize()
+    old, new = _group_limits(cuda_device)[kernel]
+    nstr128 = 128 if kernel == "b10" else 64
+    assert old <= nstr128 < new
+    for size in (old + (old % 2 if kernel == "b10" else 0), nstr128):
+        _group_case(kernel, size, cuda_device)
+    what = "m" if kernel == "b10" else "N"
+    ops = _bvp_operands(new // 2 + 1 if kernel == "b10" else new, 2, 1,
+                        cuda_device)
+    with pytest.raises(ValueError, match=f"shared memory.*{what} up to "):
+        if kernel == "b5":
+            block_thomas_rt_group(*ops)
+        elif kernel == "b6":
+            b6.block_thomas_rt_fwd_group(*ops)
+        else:
+            block_thomas_group(*assemble_blocks(*ops[:4]), ops[4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bvp_method", ["auto", "scan"])
+def test_solve_rte_f32_runs_nstr128(cuda_device, bvp_method):
+    """float32 solve_rte at nstr = 128 on the card, flux-only, 3 layers x 2
+    band-columns: the streamed route (B6's far forward instance and its
+    backward kernel) and bvp_method="scan" (B10's far instance), equal to
+    the plain path field for field."""
+    import chip_smoke
+    from sbdart_tpu_torch.kernels import blocktri_rt_streamed as b6
+    from sbdart_tpu_torch.kernels.blocktri import block_thomas_group
+    from sbdart_tpu_torch.solver.disort import solve_rte
+
+    args, kw = chip_smoke.generic_problem(2, 1, 3, cuda_device, nstr=128,
+                                          onlyfl=True)
+    counter = (block_thomas_group if bvp_method == "scan"
+               else b6.block_thomas_rt_fwd_group)
+    before = counter.launches
+    got = solve_rte(*args, dtype=torch.float32, bvp_method=bvp_method, **kw)
+    assert counter.launches == before + 1
+    want = solve_rte(*args, dtype=torch.float32, eig_method="plain",
+                     bvp_method=bvp_method, **kw)
+    for name in ("rfldir", "rfldn", "flup", "uavg", "dfdt"):
+        g = getattr(got, name)
+        assert torch.isfinite(g).all(), name
+        assert torch.equal(g, getattr(want, name)), name
