@@ -31,11 +31,13 @@ Phases, one JSON line each; the first failure exits non-zero:
               256 columns), B8 at 4 modes x 33 layers x 4096 columns, B4
               on the flat radiance lane axis (16 x 65 x 256); and B5/B6 at
               N = 2, 65 layers x 49152 columns; the generic path's B9
-              (eigen chain) on the all-mode lanes of G1 (N = 8), G2
-              (N = 4) and G3 (N = 2), B10 (block-Thomas on assembled
-              blocks) on G2's BVP (m = 8), B5/B6 at odd N on G4's (N = 3)
-              and G5's (N = 5) BVP; B6 forward's group kernel beside its
-              one-thread kernel wherever that runs (N = 8, 4, 2, 3, 5), and
+              (eigen chain; a lane group per lane at N >= 4) on the
+              all-mode lanes of G1 (N = 8), G2 (N = 4) and G3 (N = 2),
+              at N >= 4 with a NaN in one of 130 lanes, B10 (block-Thomas
+              on assembled blocks) on G2's BVP (m = 8), B5/B6 at odd N on
+              G4's (N = 3) and G5's (N = 5) BVP; B6 forward's group
+              kernel beside its one-thread kernel wherever that runs
+              (N = 8, 4, 2, 3, 5), and
               both designs where the reference streams at N = 2 (480
               layers x 49152 columns) and N = 3 (250 x 12288), the shapes
               the wrapper's rule by N is read at; the
@@ -46,7 +48,10 @@ Phases, one JSON line each; the first failure exits non-zero:
               N = 9 (G8's, 33 x 6144) and N = 20 (6 x 6144); each also at
               130 columns or lanes; B5's two designs at each N the main
               path sends it (N = 1 to 5 and 8, the shapes
-              blocktri_rt.RT_ONE_THREAD_N is read at); the group kernels
+              blocktri_rt.RT_ONE_THREAD_N is read at); B10's two designs
+              at each m the scan route sends it (m = 2, 4, 8, 16 and 18,
+              with a NaN column: the shapes blocktri.BT_ONE_THREAD_M is
+              read at); the group kernels
               past the shared memory of one column (a "shared_memory" line
               with the first N each kernel's whole column and its system
               alone no longer fit, then B5, B6 and B10 at the first of
@@ -111,6 +116,7 @@ import io
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -246,10 +252,11 @@ def device_events(fn, reps: int):
 def device_ms(fn, reps: int, match: str | None = None) -> float | None:
     """Device milliseconds per call of fn() as torch.profiler reports
     them: the summed durations of the CUDA work it launches (only kernels
-    whose name holds `match`, if given), or None when the profiler
-    reported none (it can lose a window's kernel records)."""
+    whose name `match`, a regular expression, finds, if given), or None
+    when the profiler reported none (it can lose a window's kernel
+    records)."""
     us = [t for name, t in device_events(fn, reps)
-          if match is None or match in name]
+          if match is None or re.search(match, name)]
     return sum(us) / reps / 1e3 if us else None
 
 
@@ -265,7 +272,7 @@ def device_breakdown(fn, reps: int) -> dict:
     busy = sum(t for _, t in ev) / reps / 1e3
     per = {}
     for k, spec in KERNELS.items():
-        us = [t for name, t in ev if spec[4] in name]
+        us = [t for name, t in ev if re.search(spec[4], name)]
         if us:
             per[k] = sum(us) / reps / 1e3
     return {"device_busy_ms": busy, "kernel_device_ms": per,
@@ -692,6 +699,14 @@ def rt_kernel(n):
     return "blocktri_rt" if n in RT_ONE_THREAD_N else "blocktri_rt_group"
 
 
+def bt_kernel(m):
+    """The name of the B10 kernel block_thomas runs at block size m."""
+    from sbdart_tpu_torch.kernels.blocktri import thomas_entry
+
+    return ("block_thomas" if thomas_entry(m) == "sbdart_block_thomas"
+            else "block_thomas_group")
+
+
 def bvp_calls(bvp, hist):
     """The check_kernel calls of B5 and B6 forward (each in both designs
     where both are built: the one-thread kernels at the N of
@@ -950,10 +965,11 @@ def phase_kernels_generic(device, reps):
     """The generic path's kernels against their plain versions on the
     operands the path gives them: B9 on the all-mode lanes of G1 (N = 8,
     16 modes x 65 layers x 768 columns), G2 (N = 4) and G3 (N = 2) and on
-    130 lanes; B10 on solver/bvp.py:assemble_blocks of G2's BVP (m = 8,
-    33 layers x 49152 columns) and on 130 columns; B5 and B6 at odd N on
-    G4's (N = 3, 12288 columns) and G5's (N = 5, 7680 columns) BVP and on
-    130 columns."""
+    130 lanes (at N >= 4 with a NaN in one lane's C^pp); B10 (the design
+    block_thomas routes m = 8 to) on solver/bvp.py:assemble_blocks of G2's
+    BVP (m = 8, 33 layers x 49152 columns) and on 130 columns; B5 and B6
+    at odd N on G4's (N = 3, 12288 columns) and G5's (N = 5, 7680 columns)
+    BVP and on 130 columns."""
     import torch
 
     from sbdart_tpu_torch.kernels.blocktri import (
@@ -973,6 +989,8 @@ def phase_kernels_generic(device, reps):
             del cppl, cpml
             for lanes in (flat[0].shape[-1], 130):
                 sl = tuple(x[..., :lanes].contiguous() for x in flat)
+                if lanes == 130 and flat[0].shape[1] >= 4:
+                    sl = (with_nan_lane(sl[0]), sl[1])
                 calls[("eig_chain", lanes)] = (
                     ("kk", "gp", "gm"),
                     lambda sl=sl: eig_chain(*sl, mu, w),
@@ -989,7 +1007,7 @@ def phase_kernels_generic(device, reps):
                            (*assemble_blocks(gp, gm, ee, refl), rhs))
             for cols in (blocks[0].shape[-1], 130):
                 sl = tuple(x[..., :cols].contiguous() for x in blocks)
-                calls[("block_thomas", cols)] = (
+                calls[(bt_kernel(blocks[0].shape[1]), cols)] = (
                     ("xs",), lambda sl=sl: block_thomas(*sl),
                     lambda sl=sl: block_thomas_plain(*sl), 2, sl)
             del blocks
@@ -1001,13 +1019,13 @@ def phase_kernels_generic(device, reps):
                     calls[(kname, cols)] = call
         del bvp
         rows = []
-        main = {"eig_chain": "G1", "block_thomas": "G2"}
+        main = {"eig_chain": "G1", "block_thomas_group": "G2"}
         for (kname, cols), (names, kern, plain, plain_reps, args) in \
                 calls.items():
             row = check_kernel(kname, names, kern, plain, cols, args)
             row.update(shape=name, columns=cols,
                        n=int(args[0].shape[1]) // (
-                           2 if kname == "block_thomas" else 1))
+                           2 if kname.startswith("block_thomas") else 1))
             if cols != 130:
                 time_kernel(row, kern, plain, reps, plain_reps)
             fold(summary, row, main=cols != 130 and main.get(kname) == name)
@@ -1017,6 +1035,13 @@ def phase_kernels_generic(device, reps):
         del calls, rows
         torch.cuda.empty_cache()
     return summary
+
+
+def with_nan_lane(cppl):
+    """A copy of B9's C^pp [L, N, N, lanes] with a NaN in one lane."""
+    cppl = cppl.clone()
+    cppl[0, 0, 0, cppl.shape[-1] // 2] = float("nan")
+    return cppl
 
 
 def with_nan(ops):
@@ -1053,8 +1078,9 @@ def phase_kernels_group(device, reps):
 
     summary = {}
     # the shape whose times stand in the kernels summary (B6 forward's is
-    # N = 8, in phase_kernels_general)
-    main = {"blocktri_rt_bwd_group": "G7", "block_thomas_group": "G7"}
+    # N = 8, in phase_kernels_general; B10's group kernel's G2, m = 8, in
+    # phase_kernels_generic)
+    main = {"blocktri_rt_bwd_group": "G7"}
     for name, nstr, nbc, nlyr in GROUP_SHAPES:
         bvp, _ = generic_kernel_operands(*generic_problem(
             nbc, NK, nlyr, device, nstr=nstr, onlyfl=True))["solve_bvp"]
@@ -1166,6 +1192,78 @@ def phase_kernels_rt_rule(device, reps):
               "one_thread": n in RT_ONE_THREAD_N, "bar": KERNEL_BAR,
               "results": rows})
         del bvp, rows
+        torch.cuda.empty_cache()
+    return summary
+
+
+# the m at which the bt_rule phase times B10's two designs, and the
+# generic path's shape there: (nstr, band-columns, layers, keywords of
+# generic_problem); x 3 k-terms.  m = 8 is "G2, scan" (33 x 49152), 18
+# "G8, scan" (33 x 6144), 4 and 16 the scan route at nstr 4 (all modes,
+# 33 x 49152) and 16 (all modes, 65 x 6144; fluxes at nstr 16 take the
+# lane path), 2 at nstr 2 (fluxes, 33 x 12288).
+BT_RULE = {2: (2, 4096, NLYR, dict(onlyfl=True)),
+           4: (4, 4096, NLYR, dict(onlyfl=False)),
+           8: (8, NBC16, NLYR, dict(onlyfl=False)),
+           16: (16, 128, NLYR16, dict(onlyfl=False)),
+           18: (18, NBC16, NLYR, dict(onlyfl=True))}
+
+
+def bt_operands(m, device):
+    """B10's operands at the shape the scan route gives it at block size
+    m (BT_RULE): solver/bvp.py:assemble_blocks of the generic path's BVP,
+    its finite columns (a float32 beam resonance can leave a column's rhs
+    non-finite, on the reference's route too), with a NaN injected in one
+    column's right-hand side."""
+    import torch
+
+    from sbdart_tpu_torch.solver.bvp import assemble_blocks
+
+    nstr, nbc, nlyr, kw = BT_RULE[m]
+    (gp, gm, ee, refl, rhs), _ = generic_kernel_operands(*generic_problem(
+        nbc, NK, nlyr, device, nstr=nstr, **kw))["solve_bvp"]
+    keep = torch.isfinite(rhs).all(dim=0).all(dim=0)
+    return with_nan(tuple(x[..., keep].contiguous() for x in
+                          (*assemble_blocks(gp, gm, ee, refl), rhs)))
+
+
+def phase_kernels_bt_rule(device, reps):
+    """B10's two designs at each m of BT_RULE, each against the plain
+    version (NaN column included) and timed: the group kernel always, the
+    one-thread kernel where it is built (the m of BT_ONE_THREAD_M), the
+    shapes BT_ONE_THREAD_M is read at."""
+    import torch
+
+    from sbdart_tpu_torch.kernels.blocktri import (
+        BT_ONE_THREAD_M, block_thomas, block_thomas_group, block_thomas_plain)
+
+    summary = {}
+    for m in BT_RULE:
+        blocks = bt_operands(m, device)
+        calls = {"block_thomas_group": block_thomas_group}
+        if m in BT_ONE_THREAD_M:
+            calls["block_thomas"] = block_thomas
+        rows = []
+        for kname, wrapper in calls.items():
+            def kern(w=wrapper):
+                return w(*blocks)
+
+            def plain():
+                return block_thomas_plain(*blocks)
+
+            row = check_kernel(kname, ("xs",), kern, plain,
+                               blocks[0].shape[-1], blocks)
+            time_kernel(row, kern, plain, reps, 1)
+            row["on_main_path"] = kname == bt_kernel(m)
+            # the kernels line: the one-thread kernel at the m it runs
+            fold(summary, row, main=kname == "block_thomas" and m == min(
+                BT_ONE_THREAD_M, default=0))
+            rows.append(row)
+        emit({"phase": "kernel", "path": "bt_rule", "m": m,
+              "layers": blocks[0].shape[0], "columns": blocks[0].shape[-1],
+              "one_thread": m in BT_ONE_THREAD_M, "bar": KERNEL_BAR,
+              "results": rows})
+        del blocks, rows
         torch.cuda.empty_cache()
     return summary
 
@@ -1643,7 +1741,8 @@ def phase_cli_config4(nstr=16):
 
 
 KERNELS = {   # name: (wrapper module, wrapper, source, the TPU kernel,
-              #        the CUDA kernel's __global__ name)
+              #        a regular expression for its CUDA kernels' names:
+              #        B4 and B9 share eig_beam_group_kernel<N, G, kBeam>)
     "eig_n2_deltam": ("eig_n2", "eig_beam_deltam_scatter_n2",
                       "eig_n2_deltam.cu", "sbdart_tpu/pallas/eig.py:838",
                       "eig_n2_deltam_kernel"),
@@ -1655,7 +1754,8 @@ KERNELS = {   # name: (wrapper module, wrapper, source, the TPU kernel,
                        "eig_n2_scatter.cu", "sbdart_tpu/pallas/eig.py:780",
                        "eig_n2_scatter_kernel"),
     "eig_beam": ("eig_beam", "eig_beam_chain", "eig_beam_group.cu",
-                 "sbdart_tpu/pallas/eig.py:281", "eig_beam_group_kernel"),
+                 "sbdart_tpu/pallas/eig.py:281",
+                 r"eig_beam_group_kernel(<\d+, \d+, true>|ILi\d+ELi\d+ELb1E)"),
     "blocktri_rt": ("blocktri_rt", "block_thomas_rt", "blocktri_rt.cu",
                     "sbdart_tpu/pallas/blocktri.py:269",
                     "blocktri_rt_kernel"),
@@ -1672,8 +1772,10 @@ KERNELS = {   # name: (wrapper module, wrapper, source, the TPU kernel,
     "eig_n2_planar": ("eig_n2", "eig_beam_chain_n2", "eig_n2_planar.cu",
                       "sbdart_tpu/pallas/eig.py:764",
                       "eig_n2_planar_kernel"),
-    "eig_chain": ("eig_chain", "eig_chain", "eig_chain.cu",
-                  "sbdart_tpu/pallas/eig.py:272", "eig_chain_kernel"),
+    "eig_chain": ("eig_chain", "eig_chain", "eig_beam_group.cu",
+                  "sbdart_tpu/pallas/eig.py:272",
+                  r"eig_chain_kernel|"
+                  r"eig_beam_group_kernel(<\d+, \d+, false>|ILi\d+ELi\d+ELb0E)"),
     "block_thomas": ("blocktri", "block_thomas", "block_thomas.cu",
                      "sbdart_tpu/pallas/blocktri.py:93",
                      "block_thomas_kernel"),
@@ -1694,7 +1796,7 @@ KERNELS = {   # name: (wrapper module, wrapper, source, the TPU kernel,
     "block_thomas_group": ("blocktri", "block_thomas_group",
                            "block_thomas.cu",
                            "sbdart_tpu/pallas/blocktri.py:93",
-                           "block_thomas_group_kernel"),
+                           "block_thomas_(group|rows)_kernel"),
 }
 
 
@@ -1760,6 +1862,7 @@ def main() -> int:
                  phase_kernels_generic(device, reps=10),
                  phase_kernels_group(device, reps=5),
                  phase_kernels_rt_rule(device, reps=10),
+                 phase_kernels_bt_rule(device, reps=5),
                  phase_kernels_far(device)):
         merge(summary, part)
     t_kernels = time.perf_counter() - t0
@@ -1798,7 +1901,7 @@ def main() -> int:
          ("eig_chain", "blocktri_rt_fwd_group", "blocktri_rt_bwd")),
         (lambda: phase_generic(device, 5, "G2"), ("eig_chain", rt_kernel(4))),
         (lambda: phase_generic(device, 5, "G2", bvp_method="scan"),
-         ("eig_chain", "block_thomas")),
+         ("eig_chain", bt_kernel(8))),
         (lambda: phase_generic(device, 5, "G3"),
          ("eig_chain", "blocktri_rt_n2")),
         (lambda: phase_generic(device, 5, "G4"), (rt_kernel(3),)),
@@ -1810,7 +1913,7 @@ def main() -> int:
         (lambda: phase_generic(device, 1, "G8", bar=0.0),
          ("blocktri_rt_group",)),
         (lambda: phase_generic(device, 1, "G8", bvp_method="scan", bar=0.0),
-         ("block_thomas_group",)),
+         (bt_kernel(18),)),
         (lambda: phase_generic(device, 1, "G9", bar=0.0),
          ("blocktri_rt_fwd_group", "blocktri_rt_bwd_group")),
         (lambda: phase_cli_config4(nstr=32),
@@ -1855,18 +1958,46 @@ def main() -> int:
 
 
 def ab_cases(device):
-    """(kernel, N, builder of the zero-argument call) for `ab_times`: B4
-    layered at 65 x 6144 (N = 4, 6, 8) and flat at 16 x 65 x 256; B5's
-    designs at rt_operands' shapes and the group kernel at G8's (N = 9)
-    and at N = 20 (6 x 6144); B6 forward's group kernel at N = 2 (480 x
-    49152), 8, 10 and 16 (65 x 6144), its backward kernels at N = 8
-    (one-thread), 10 and 16 (group); B10's group kernel on G7's blocks
-    (m = 20)."""
+    """(kernel, N, shape, a zero-argument call) for `ab_times`: B9
+    on the flat all-mode lanes of G1 (N = 8) and G2 (N = 4), through its
+    wrapper, and on the same lanes laid out as layers of 768; B10 through
+    block_thomas's route and its group kernel at each m of BT_RULE (the
+    parent's route ran one thread per column at every m <= 16); B4
+    layered at 65 x 6144 (N = 4, 6, 8) and
+    flat at 16 x 65 x 256; B5's designs at rt_operands' shapes and the
+    group kernel at G8's (N = 9) and at N = 20 (6 x 6144); B6 forward's
+    group kernel at N = 2 (480 x 49152), 8, 10 and 16 (65 x 6144), its
+    backward kernels at N = 8 (one-thread), 10 and 16 (group); B10's
+    group kernel on G7's blocks (m = 20)."""
     from sbdart_tpu_torch.kernels import blocktri_rt as b5
     from sbdart_tpu_torch.kernels import blocktri_rt_streamed as b6
     from sbdart_tpu_torch.kernels import eig_beam as b4
-    from sbdart_tpu_torch.kernels.blocktri import block_thomas_group
+    from sbdart_tpu_torch.kernels.blocktri import (
+        block_thomas, block_thomas_group)
+    from sbdart_tpu_torch.kernels.eig_chain import eig_chain
     from sbdart_tpu_torch.solver.bvp import assemble_blocks
+
+    for name in ("G1", "G2"):
+        (cppl, cpml, mu, w), _ = generic_operands(
+            name, device)["eig_chain_lane"]
+        flat = tuple(x[None].contiguous() for x in (cppl, cpml))
+        n, lanes = flat[0].shape[1], flat[0].shape[-1]
+        # the same lanes as layers of 768 columns (the layered entry)
+        lay = tuple(x.reshape(n, n, lanes // 768, 768).permute(2, 0, 1, 3)
+                    .contiguous() for x in (cppl, cpml))
+        del cppl, cpml
+        yield "eig_chain/flat", n, flat[0].shape, (
+            lambda flat=flat, mu=mu, w=w: eig_chain(*flat, mu, w))
+        yield "eig_chain/layered", n, lay[0].shape, (
+            lambda lay=lay, mu=mu, w=w: eig_chain(*lay, mu, w))
+        del flat, lay
+    for m in BT_RULE:
+        blocks = bt_operands(m, device)
+        yield "block_thomas", m, blocks[0].shape, (
+            lambda b=blocks: block_thomas(*b))
+        yield "block_thomas_group", m, blocks[0].shape, (
+            lambda b=blocks: block_thomas_group(*b))
+        del blocks
 
     def b4_call(front):
         return lambda: b4.eig_beam_chain(*front)

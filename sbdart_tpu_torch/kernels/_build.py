@@ -125,8 +125,9 @@ def library() -> ctypes.CDLL:
     lib.sbdart_radsrc.restype = _I
     lib.sbdart_eig_beam_group.argtypes = [_P] * 10 + [_I] * 3 + [_P, _P]
     lib.sbdart_eig_beam_group.restype = _I
-    lib.sbdart_eig_chain.argtypes = [_P] * 5 + [_I, _I, _I, _P, _P]
-    lib.sbdart_eig_chain.restype = _I
+    for name in ("sbdart_eig_chain", "sbdart_eig_chain_group"):
+        getattr(lib, name).argtypes = [_P] * 5 + [_I, _I, _I, _P, _P]
+        getattr(lib, name).restype = _I
     lib.sbdart_block_thomas.argtypes = [_P] * 7 + [_I, _I, _I, _P]
     lib.sbdart_block_thomas.restype = _I
     lib.sbdart_blocktri_rt_n2.argtypes = [_P] * 8 + [_I, _I, _P]

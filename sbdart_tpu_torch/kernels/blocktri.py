@@ -11,12 +11,12 @@ column with the full W history:
 
 with kernels/blocktri_rt.py:solve_step (the reference's _solve_step:
 first-max implicit pivoting, shrinking elimination).  `block_thomas`
-launches a CUDA kernel of csrc/block_thomas.cu on CUDA tensors (one thread
-per column at m = 2..16; past that `block_thomas_group`, a group of lanes
-per column on the elimination core) and runs `block_thomas_plain` on CPU
-tensors.  The reference pads the columns with
-identity blocks and refuses shapes beyond its VMEM; neither is a limit
-here.  Returns xs [L, m, B].
+launches a CUDA kernel of csrc/block_thomas.cu on CUDA tensors
+(`thomas_entry` names it by m: one thread per column at the m of
+BT_ONE_THREAD_M, `block_thomas_group`, a group of lanes per column, at
+every other m) and runs `block_thomas_plain` on CPU tensors.  The
+reference pads the columns with identity blocks and refuses shapes beyond
+its VMEM; neither is a limit here.  Returns xs [L, m, B].
 """
 
 from __future__ import annotations
@@ -26,6 +26,19 @@ import torch
 from sbdart_tpu_torch.kernels.blocktri_rt import solve_step
 from sbdart_tpu_torch.ops.lane import lmatmul as _mm
 from sbdart_tpu_torch.ops.lane import lmatvec as _mv
+
+# B10's design by m: the one-thread-per-column kernel (built at these m
+# only) at these m, the group kernel at every other m.  chip_smoke.py's
+# bt_rule phase times both designs at the m the scan route sends B10
+# (PERF.md §6): one thread is ahead at m = 4 only.
+BT_ONE_THREAD_M = frozenset({4})
+
+
+def thomas_entry(m: int) -> str:
+    """The C entry that runs B10 at block size m (see BT_ONE_THREAD_M)."""
+    if m in BT_ONE_THREAD_M:
+        return "sbdart_block_thomas"
+    return "sbdart_block_thomas_group"
 
 
 def block_thomas_plain(diag, lower, upper, rhs):
@@ -86,12 +99,12 @@ def _launch(name, entry, diag, lower, upper, rhs):
 
 
 def block_thomas(diag, lower, upper, rhs):
-    """B10: the one-thread-per-column CUDA kernel on CUDA tensors at
-    m = 2, 4, ..., 16 (float32 only), `block_thomas_group` at every other
-    m, the plain torch version on CPU tensors."""
+    """B10 on CUDA tensors (float32 only): the one-thread-per-column
+    kernel at the m of BT_ONE_THREAD_M, `block_thomas_group` at every
+    other m; the plain torch version on CPU tensors."""
     if diag.device.type == "cpu":
         return block_thomas_plain(diag, lower, upper, rhs)
-    if diag.shape[1] not in range(2, 17, 2):
+    if thomas_entry(diag.shape[1]) == "sbdart_block_thomas_group":
         return block_thomas_group(diag, lower, upper, rhs)
     xs = _launch("block_thomas", "sbdart_block_thomas", diag, lower, upper,
                  rhs)
@@ -100,9 +113,10 @@ def block_thomas(diag, lower, upper, rhs):
 
 
 def block_thomas_group(diag, lower, upper, rhs):
-    """B10 on a group of lanes per column, any m >= 1 (the CUDA kernel
-    block_thomas_group_kernel of csrc/block_thomas.cu on CUDA tensors,
-    float32 only; the plain torch version on CPU tensors)."""
+    """B10 on a group of lanes per column, any m >= 1 (the CUDA kernels of
+    csrc/block_thomas.cu on CUDA tensors, float32 only: rows in registers
+    at even m <= 8, the system in shared memory past that; the plain
+    torch version on CPU tensors)."""
     if diag.device.type == "cpu":
         return block_thomas_plain(diag, lower, upper, rhs)
     if diag.shape[1] < 1:

@@ -387,55 +387,7 @@ __global__ void __launch_bounds__(256, 3) blocktri_rt_group_kernel_rows(
     if (has_b) rhs_col(tb, xb, vb);
 
     // ---- elimination: solve_step's steps, rows by lane -------------------
-    float keep[m][m];           // step k's pivot row, columns k..m-1
-    float keep_a[m], keep_b[m];   // and its entries of this lane's columns
-    unsigned done = 0;
-#pragma unroll
-    for (int k = 0; k < m; ++k) {
-      const bool mine_done = lane >= m || ((done >> lane) & 1u);
-      const float cand = lane >= m ? -3.0f : (mine_done ? -1.0f : fabsf(a[k]));
-      const int p = sbdart_group::pivot_butterfly(
-          sbdart_group::pivot_key(cand, lane), G);
-#pragma unroll
-      for (int c = k; c < m; ++c)
-        keep[k][c] = __shfl_sync(sbdart_group::kFull, a[c], p, G);
-      const float inv = 1.0f / keep[k][k];
-      float f = 0.0f;
-      if (!mine_done && lane != p) {
-        f = a[k] * inv;
-#pragma unroll
-        for (int c = k + 1; c < m; ++c) a[c] = a[c] - f * keep[k][c];
-      }
-      float pa = va[0], pb = vb[0];
-#pragma unroll
-      for (int i = 1; i < m; ++i) {
-        pa = (i == p) ? va[i] : pa;
-        pb = (i == p) ? vb[i] : pb;
-      }
-      keep_a[k] = pa;
-      keep_b[k] = pb;
-#pragma unroll
-      for (int i = 0; i < m; ++i) {
-        const float fi = __shfl_sync(sbdart_group::kFull, f, i, G);
-        if (!((done >> i) & 1u) && i != p) {
-          va[i] = va[i] - fi * pa;
-          vb[i] = vb[i] - fi * pb;
-        }
-      }
-      done |= 1u << p;
-    }
-    // ---- back substitution of this lane's columns ------------------------
-#pragma unroll
-    for (int r = m - 1; r >= 0; --r) {
-      float s = keep_a[r], u = keep_b[r];
-#pragma unroll
-      for (int j = r + 1; j < m; ++j) {
-        s = s - keep[r][j] * xa[j];
-        u = u - keep[r][j] * xb[j];
-      }
-      xa[r] = s / keep[r][r];
-      xb[r] = has_b ? u / keep[r][r] : 0.0f;
-    }
+    sbdart_group::solve_rows_cols<m, G>(a, va, vb, lane, has_b, xa, xb);
     // ---- W for the next layer's top rows, and the history ----------------
     __syncwarp();
     auto put = [&](int t, const float (&x)[m]) {

@@ -1,20 +1,16 @@
-// B9: the eigen chain (SOLEIG) without the beam solve, for N = nstr/2 =
-// 2, 4, 6, 8, one thread per (layer, column) lane.  The generic solver
-// path runs it on every (mode, layer, column) lane of an all-mode solve.
+// B9: the eigen chain (SOLEIG) without the beam solve at N = nstr/2 = 2,
+// one thread per (layer, column) lane.  The generic solver path runs it on
+// every (mode, layer, column) lane of an all-mode nstr=4 solve; N = 4, 6, 8
+// run on a lane group per lane (eig_beam_group.cu, sbdart_eig_chain_group).
 //
 // Replaces the TPU kernel sbdart_tpu/pallas/eig.py:_kernel (reached via
-// eig_chain_lane_fused): alpha -+ beta, the sqrt(mu w) congruence, the
-// ridged Cholesky, L^T S+ L, 3 sweeps of parallel-ordered Jacobi at N >= 4
-// or the closed-form half-angle 2x2 eigh at N = 2, the triangular solve
-// and G+-, all in eig_chain.cuh.  No sort.
+// eig_chain_lane_fused) at N = 2: alpha -+ beta, the sqrt(mu w)
+// congruence, the ridged Cholesky, L^T S+ L, the closed-form half-angle
+// 2x2 eigh, the triangular solve and G+-, all in eig_chain.cuh.  No sort.
 //
-// What bounds it on Hopper: arithmetic and local memory, as B4's chain.  A
-// lane reads 2 N^2 floats and writes 2 N^2 + N; at N = 8 it does ~11k
-// flops (~0.05 B/flop), and the chain's ~6 N^2-float working set spills
-// past the register file to local memory (L1-resident).  At N = 2 the
-// chain is a few dozen flops and the kernel is bound by its bytes.  The
-// TPU's lane tiles and identity padding are gone: the kernel bounds-checks
-// col < B.
+// What bounds it on Hopper: its bytes.  A lane reads 8 floats and writes
+// 10, against a few dozen flops, in registers.  The TPU's lane tiles and
+// identity padding are gone: the kernel bounds-checks col < B.
 
 #include <cuda_runtime.h>
 
@@ -63,22 +59,7 @@ extern "C" int sbdart_eig_chain(const float* cpp, const float* cpm,
   if (nlyr <= 0 || ncol <= 0) return 0;
   EigChainConsts k;
   memcpy(&k, consts_host, sizeof(k));
-  cudaError_t err;
-  switch (n) {
-    case 2:
-      err = launch<2>(cpp, cpm, kk, gp, gm, nlyr, ncol, k, stream);
-      break;
-    case 4:
-      err = launch<4>(cpp, cpm, kk, gp, gm, nlyr, ncol, k, stream);
-      break;
-    case 6:
-      err = launch<6>(cpp, cpm, kk, gp, gm, nlyr, ncol, k, stream);
-      break;
-    case 8:
-      err = launch<8>(cpp, cpm, kk, gp, gm, nlyr, ncol, k, stream);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(err);
+  if (n != 2) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch<2>(cpp, cpm, kk, gp, gm, nlyr, ncol, k,
+                                    stream));
 }

@@ -1,10 +1,11 @@
 // The general-n eigen chain (SOLEIG) of one (layer, column) on a group of
 // G lanes (G a power of two, N <= G <= 32): lane i owns row i of every
-// N x N matrix.  Used by B4 (eig_beam_group.cu); B9 (eig_chain.cu) keeps
-// the one-thread chain of eig_chain.cuh.
+// N x N matrix.  Used by B4 and B9 at N = 4, 6, 8 (eig_beam_group.cu: B9
+// is B4's kernel without the beam solve); B9 at N = 2 keeps the
+// one-thread half-angle chain of eig_chain.cuh.
 //
 // Mirrors sbdart_tpu/pallas/eig.py:_eig_chain_core and its plain torch twin
-// sbdart_tpu_torch/kernels/eig_chain.py:chain, steps 2-5 of eig_chain.cuh:
+// sbdart_tpu_torch/kernels/eig_chain.py:chain, steps 2-5:
 //   2. the sqrt(mu w) congruence, symmetrized; the trace ridge on S-'s
 //      diagonal;
 //   3. Cholesky S- = L L^T, then L^T S+ L, symmetrized;
@@ -22,15 +23,16 @@
 // the constexpr round-robin schedule `partner` (that of
 // kernels/eig_chain.py:_jacobi_tables), so a column's partner is a
 // constant; a row's partner, a lane's own, is read from a small table of
-// the block's shared memory.  Cross-row reads
-// go through shuffles inside the group (a row's partner row, the
-// diagonal, Cholesky's row j) or through the problem's shared memory: its
-// N x N tiles, 16-byte rows (the transposes of the symmetrizations, L's
-// columns, S+, L and alpha - beta read a row at a time, 16 bytes a load,
-// by every lane at once, V's columns), and each Jacobi round's rotations
-// (c_j, s_j), written by lane j and read by all.  The rotation parameters, with their sqrt and divisions, are
-// computed by the N lanes at once; the one-thread chain computed them in
-// series.
+// the block's shared memory.  Cross-row reads go through shuffles inside
+// the group (a row's partner row, the diagonal, Cholesky's row j) or
+// through the problem's shared memory: its N x N tiles, 16-byte rows (the
+// transposes of the symmetrizations, L's columns, S+, L and alpha - beta
+// read a row at a time, 16 bytes a load, by every lane at once, V's
+// columns), and each Jacobi round's rotations (c_j, s_j), written by lane
+// j and read by all.  The rotation parameters, with their sqrt and
+// divisions, are computed by the N lanes at once; the one-thread chain
+// that B4 and B9 ran before computed them in series, its rows in local
+// memory.
 //
 // Numerics: every element is computed by one lane, every sum over a
 // matrix index in order k = 0, 1, ..., each operation the plain
@@ -46,6 +48,7 @@
 
 namespace sbdart_eig_group {
 
+using sbdart_eig::clamp_min;
 using sbdart_eig::EigChainConsts;
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -63,11 +66,6 @@ __host__ __device__ constexpr int rr_position(int n, int r, int x) {
 __host__ __device__ constexpr int partner(int n, int r, int x) {
   return (x < 0 || x >= n) ? x
                            : rr_player(n, r, n - 1 - rr_position(n, r, x));
-}
-
-// torch.clamp_min(x, lo): NaN stays NaN (fmaxf would give lo).
-__device__ __forceinline__ float clamp_min(float x, float lo) {
-  return x != x ? x : fmaxf(x, lo);
 }
 
 // v[i] for a lane's own index i, over the unrolled row (v[0] where i >= N).

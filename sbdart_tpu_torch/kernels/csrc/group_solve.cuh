@@ -3,7 +3,8 @@
 // so that a group never straddles a warp and several narrow columns share
 // one), with N a run-time argument.  Used by B4, B5, B6 and B10
 // (eig_beam_group.cu, blocktri_rt_group.cu, blocktri_rt_streamed_group.cu,
-// block_thomas.cu).
+// block_thomas.cu); at small N the system in registers instead
+// (solve_rows, solve_rows_cols).
 //
 // The augmented system [A | R] (m rows, w columns) of one column lives in
 // shared memory, row major (row_stride); lane r owns the rows r, r + G,
@@ -121,6 +122,36 @@ struct Block {
         copy_async(dst, from);
       else
         *dst = *from;
+    }
+  }
+
+  // The same for a plane of rows x len elements (element (r, k) at
+  // src[(first + r len + k) * B + c]) into rows `rs` floats apart: to
+  // offset off + r rs + k of each column's region.  A thread's elements
+  // are G apart, so (r, k) advances without a division.
+  template <bool kShared>
+  __device__ __forceinline__ void stage_rows(float* base, int bstride, int off,
+                                             int rs, const float* src,
+                                             long long first, int rows,
+                                             int len) const {
+    const int s = t & (cols - 1);
+    float* dst = base + s * bstride + off;
+    const float* from = src + first * B + min(col0 + s, ncol - 1);
+    const int step = nt >> shift;
+    const int dr = step / len, dk = step - dr * len;
+    int e = t >> shift;
+    int r = e / len, k = e - r * len;
+    for (; r < rows; e += step) {
+      if constexpr (kShared)
+        copy_async(dst + r * rs + k, from + (long long)e * B);
+      else
+        dst[r * rs + k] = from[(long long)e * B];
+      r += dr;
+      k += dk;
+      if (k >= len) {
+        k -= len;
+        ++r;
+      }
     }
   }
 
@@ -289,6 +320,69 @@ __device__ __forceinline__ void solve_rows(float (&a)[M + 1], int i, int g,
 #pragma unroll
     for (int j = r + 1; j < M; ++j) s = s - keep[j] * x[j];
     x[r] = __shfl_sync(kFull, s / keep[r], r, g);
+  }
+}
+
+// The elimination of solve_rows with the right-hand sides by column: lane
+// i < M holds row i of A (M x M, M <= G) in `a`, and each lane up to two
+// of the right-hand columns whole (va, vb: the column's M rows; has_b
+// whether the second is real).  Step k takes the pivot row by the
+// butterfly, broadcasts its columns k.. by shuffles and updates the rows
+// still in play, and the rows' multipliers go to the column lanes by
+// shuffle; each lane keeps every step's pivot row (its entries of A and
+// of this lane's columns) and back-substitutes its own columns into xa
+// and xb (xb zero where has_b is false).  The operations are solve_step's
+// in its order.  Every lane of the group takes part.
+template <int M, int G>
+__device__ __forceinline__ void solve_rows_cols(float (&a)[M], float (&va)[M],
+                                                float (&vb)[M], int lane,
+                                                bool has_b, float (&xa)[M],
+                                                float (&xb)[M]) {
+  float keep[M][M];             // step k's pivot row, columns k..M-1
+  float keep_a[M], keep_b[M];   // and its entries of this lane's columns
+  unsigned done = 0;
+#pragma unroll
+  for (int k = 0; k < M; ++k) {
+    const bool mine_done = lane >= M || ((done >> lane) & 1u);
+    const float cand = lane >= M ? -3.0f : (mine_done ? -1.0f : fabsf(a[k]));
+    const int p = pivot_butterfly(pivot_key(cand, lane), G);
+#pragma unroll
+    for (int c = k; c < M; ++c) keep[k][c] = __shfl_sync(kFull, a[c], p, G);
+    const float inv = 1.0f / keep[k][k];
+    float f = 0.0f;
+    if (!mine_done && lane != p) {
+      f = a[k] * inv;
+#pragma unroll
+      for (int c = k + 1; c < M; ++c) a[c] = a[c] - f * keep[k][c];
+    }
+    float pa = va[0], pb = vb[0];
+#pragma unroll
+    for (int i = 1; i < M; ++i) {
+      pa = (i == p) ? va[i] : pa;
+      pb = (i == p) ? vb[i] : pb;
+    }
+    keep_a[k] = pa;
+    keep_b[k] = pb;
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      const float fi = __shfl_sync(kFull, f, i, G);
+      if (!((done >> i) & 1u) && i != p) {
+        va[i] = va[i] - fi * pa;
+        vb[i] = vb[i] - fi * pb;
+      }
+    }
+    done |= 1u << p;
+  }
+#pragma unroll
+  for (int r = M - 1; r >= 0; --r) {
+    float s = keep_a[r], u = keep_b[r];
+#pragma unroll
+    for (int j = r + 1; j < M; ++j) {
+      s = s - keep[r][j] * xa[j];
+      u = u - keep[r][j] * xb[j];
+    }
+    xa[r] = s / keep[r][r];
+    xb[r] = has_b ? u / keep[r][r] : 0.0f;
   }
 }
 

@@ -11,8 +11,10 @@ count, round-robin pair schedule) or the closed-form half-angle 2x2 eigh
 at N = 2 (kernels/eig_n2.py:eigh2_half_angle, pallas/eig.py:258-261), no
 eigenvalue sort either way -- and the triangular solve to G+-.
 
-`eig_chain` launches the CUDA kernel csrc/eig_chain.cu on CUDA tensors and
-runs `eig_chain_plain` on CPU tensors.  Layout is layer-leading and
+`eig_chain` launches a CUDA kernel on CUDA tensors (`chain_entry`: at
+N = 2 the one-thread chain of csrc/eig_chain.cu, at N = 4, 6, 8 B4's lane
+group kernel without the beam solve, csrc/eig_beam_group.cu) and runs
+`eig_chain_plain` on CPU tensors.  Layout is layer-leading and
 column-minor: cppl/cpml [L, N, N, B] -> kk [L, N, B], gp/gm [L, N, N, B].
 `eig_chain_lane` is the counterpart of eig_chain_lane_fused: flat
 [N, N, B] operands as a one-layer view.
@@ -75,22 +77,16 @@ def _consts(mu, w, dtype: torch.dtype) -> dict:
 
 @functools.lru_cache(maxsize=8)
 def _kernel_consts(mu: tuple, w: tuple) -> np.ndarray:
-    """The kernels' EigChainConsts struct (csrc/eig_chain.cuh) as 148
-    32-bit words: inv_mu, w, p, inv_p [8 each], ridge, eps, kk_floor, pad,
-    partner [7][8] (int32), sgn [7][8]."""
+    """The kernels' EigChainConsts struct (csrc/eig_chain.cuh) as 36
+    32-bit words: inv_mu, w, p, inv_p [8 each], ridge, eps, kk_floor, pad.
+    (The lane-group chain takes its Jacobi pair schedule from
+    csrc/eig_group.cuh:partner, the same round-robin as _jacobi_tables.)"""
     c = _consts(mu, w, torch.float32)
     n = c["n"]
-    f = np.zeros(148, np.float32)
+    f = np.zeros(36, np.float32)
     for k, name in enumerate(("inv_mu", "w", "p", "inv_p")):
         f[8 * k:8 * k + n] = c[name]
     f[32:35] = (c["ridge"], c["eps"], c["kk_floor"])
-    part = np.zeros((7, 8), np.int32)
-    sgn = np.zeros((7, 8), np.float32)
-    for r, (pt, sg) in enumerate(c["tables"]):
-        part[r, :n] = pt
-        sgn[r, :n] = sg
-    f[36:92] = part.ravel().view(np.float32)
-    f[92:148] = sgn.ravel()
     f.flags.writeable = False
     return f
 
@@ -202,17 +198,30 @@ def eig_chain_plain(cppl, cpml, mu, w, sweeps=SWEEPS_F32):
     return chain(c, *alpha_beta(c, cppl, cpml), sweeps)
 
 
+def chain_entry(n: int) -> str:
+    """The C entry that runs B9 at N = n: the one-thread half-angle chain
+    at N = 2, the lane group chain (B4's kernel without the beam solve)
+    at N = 4, 6, 8; a ValueError at any other N."""
+    if n == 2:
+        return "sbdart_eig_chain"
+    if n in (4, 6, 8):
+        return "sbdart_eig_chain_group"
+    raise ValueError(f"eig_chain: the kernel takes N = 2, 4, 6 or 8, got {n}")
+
+
 def eig_chain(cppl, cpml, mu, w):
-    """B9: the CUDA kernel on CUDA tensors (float32 only, 3 sweeps), the
-    plain torch version on CPU tensors.  Shapes as in the module doc."""
+    """B9: a CUDA kernel on CUDA tensors (float32 only, 3 sweeps;
+    `chain_entry` names it by N), the plain torch version on CPU tensors.
+    Shapes as in the module doc."""
     if cppl.device.type == "cpu":
         return eig_chain_plain(cppl, cpml, mu, w)
     from sbdart_tpu_torch.kernels import _build
 
     nlyr, n, _, b = cppl.shape
-    if n not in (2, 4, 6, 8):
-        raise ValueError(f"eig_chain: the kernel takes N = 2, 4, 6 or 8, "
-                         f"got {n}")
+    entry = chain_entry(n)
+    if nlyr > 65535:
+        raise ValueError(f"eig_chain: the kernel takes at most 65535 layers "
+                         f"a launch, got {nlyr}")
     for name, t in (("cppl", cppl), ("cpml", cpml)):
         if tuple(t.shape) != (nlyr, n, n, b):
             raise ValueError(f"eig_chain: {name} has shape "
@@ -228,7 +237,7 @@ def eig_chain(cppl, cpml, mu, w):
     lib = _build.library()
     with torch.cuda.device(cppl.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.sbdart_eig_chain(
+        code = getattr(lib, entry)(
             *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
             nlyr, n, b, consts.ctypes.data, stream,
         )

@@ -19,13 +19,21 @@ generic path's own block-Thomas (solver/bvp.py:block_thomas_scan) on
 assembled blocks, in float64.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from sbdart_tpu.pallas.blocktri import block_thomas as ref_block_thomas
-from sbdart_tpu_torch.kernels.blocktri import block_thomas, block_thomas_plain
+from sbdart_tpu_torch.kernels.blocktri import (
+    BT_ONE_THREAD_M,
+    block_thomas,
+    block_thomas_plain,
+    thomas_entry,
+)
 from sbdart_tpu_torch.solver.bvp import assemble_blocks, block_thomas_scan
 
 
@@ -103,3 +111,22 @@ def test_block_thomas_wrapper_takes_plain_version_on_cpu():
     before = block_thomas.launches
     assert torch.equal(block_thomas(*arrays), block_thomas_plain(*arrays))
     assert block_thomas.launches == before
+
+
+@pytest.mark.parametrize("m", range(1, 25))
+def test_block_thomas_entry_by_m(m):
+    """The wrapper's choice of kernel by m: the one-thread kernel at the m
+    of BT_ONE_THREAD_M, the group kernel at every other m."""
+    one = m in BT_ONE_THREAD_M
+    assert thomas_entry(m) == ("sbdart_block_thomas" if one
+                               else "sbdart_block_thomas_group")
+
+
+def test_block_thomas_one_thread_instances_are_the_routed_m():
+    """csrc/block_thomas.cu builds the one-thread kernel at exactly the m
+    of BT_ONE_THREAD_M: no m routed to it is missing, none is dead."""
+    src = (Path(block_thomas.__code__.co_filename).parent / "csrc"
+           / "block_thomas.cu").read_text()
+    built = {int(x) for x in re.findall(r"^\s*SBDART_BT_CASE\((\d+)\)", src,
+                                        re.M)}
+    assert built == set(BT_ONE_THREAD_M)

@@ -1,9 +1,9 @@
 """B9 (the eigen chain without the beam solve): the port's plain torch
 version against the JAX package's Pallas kernel run through the
 interpreter (eig_chain_lane_fused, interpret=True), at the (nstr, nlyr, b)
-cases of tests/test_pallas_kernels.py:237 (N = 2, 4, 8), on the same
-float32 operands: the generic path's all-mode C^pp/C^pm of random optics
-(ssalb U(0.05, 0.999), HG moments of g U(0, 0.85)) in lane layout.
+cases of tests/test_pallas_kernels.py:237 (N = 2, 4, 8) and at N = 6, on
+the same float32 operands: the generic path's all-mode C^pp/C^pm of random
+optics (ssalb U(0.05, 0.999), HG moments of g U(0, 0.85)) in lane layout.
 
 Bars, the reference's own (tests/test_pallas_kernels.py:189-263):
 eigenpairs sorted by kk on both sides (neither route sorts), kk within
@@ -24,6 +24,7 @@ import torch
 from sbdart_tpu.pallas.eig import eig_chain_lane_fused
 from sbdart_tpu_torch.kernels.eig_chain import (
     SWEEPS_F64,
+    chain_entry,
     eig_chain,
     eig_chain_lane,
     eig_chain_plain,
@@ -68,7 +69,8 @@ def eigen_residuals(cppl, cpml, mu, w, kk, gp, gm):
 
 
 @pytest.mark.parametrize("all_modes", [False, True], ids=["mode0", "all"])
-@pytest.mark.parametrize("nstr,nlyr,b", [(4, 5, 7), (8, 3, 130), (16, 9, 13)])
+@pytest.mark.parametrize("nstr,nlyr,b", [(4, 5, 7), (8, 3, 130), (16, 9, 13),
+                                         (12, 4, 11)])
 def test_eig_chain_plain_matches_pallas_interpret(nstr, nlyr, b, all_modes):
     """Mode 0 (the reference test's operands) and all nstr modes (the
     generic path's all-mode lanes)."""
@@ -129,3 +131,15 @@ def test_eig_chain_wrapper_takes_plain_version_on_cpu():
                     eig_chain_plain(cppl[None], cpml[None], mu, w)):
         assert torch.equal(g, p)
     assert eig_chain.launches == before
+
+
+def test_eig_chain_entry_by_n():
+    """The wrapper's choice of kernel by N: the one-thread half-angle
+    chain at N = 2, the lane-group chain at N = 4, 6, 8, and a ValueError
+    at any other N (no fallback to the plain version)."""
+    assert chain_entry(2) == "sbdart_eig_chain"
+    for n in (4, 6, 8):
+        assert chain_entry(n) == "sbdart_eig_chain_group"
+    for n in (1, 3, 5, 9, 16):
+        with pytest.raises(ValueError, match="N = 2, 4, 6 or 8"):
+            chain_entry(n)

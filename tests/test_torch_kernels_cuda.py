@@ -13,9 +13,9 @@ and 8; B6: 65 layers x 6144 columns at N = 4, 6 and 8; B5/B6 at N = 2:
 (65 layers x 256 columns), 12, 8 and 4; B8 at 4 modes x 33 layers x 4096
 columns; B4 on the flat radiance lane axis) and an unaligned 130.  The
 kernels are built with --fmad=false and follow their plain versions'
-operation order, so they agree to the last bit on the H100: B4 and the
-group kernels are held to equality here, NaN positions included (a NaN
-injected in one column).
+operation order, so they agree to the last bit on the H100: B4, B9, B10
+and the group kernels are held to equality here, NaN positions included
+(a NaN injected in one column).
 """
 
 import pytest
@@ -375,7 +375,8 @@ def _generic(nstr, nbc, nlyr, device, **kw):
 @pytest.mark.parametrize("lanes", [None, 130])
 def test_eig_chain_kernel_matches_plain(cuda_device, nstr, lanes):
     """B9 on the generic path's all-mode operands (nstr modes x 9 layers x
-    64 columns: N = 2, 4, 6, 8) and on their first 130 lanes."""
+    64 columns: N = 2, 4, 6, 8) and on their first 130 lanes, equal to its
+    plain version element for element."""
     from sbdart_tpu_torch.kernels.eig_chain import (
         eig_chain, eig_chain_plain)
 
@@ -387,7 +388,39 @@ def test_eig_chain_kernel_matches_plain(cuda_device, nstr, lanes):
     torch.cuda.synchronize()
     assert eig_chain.launches == before + 1
     for name, g, w_ in zip(NAMES, got, eig_chain_plain(*ops, mu, w)):
-        _assert_close(g, w_, name)
+        _assert_equal(g, w_, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nstr", [8, 12, 16])
+@pytest.mark.parametrize("layout", ["layered", "flat"])
+@pytest.mark.parametrize("lanes", [6144, 130])
+def test_eig_chain_group_matches_plain(cuda_device, nstr, layout, lanes):
+    """B9 at N = 4, 6, 8 runs the lane-group chain (B4's kernel without
+    the beam solve), equal to its plain version element for element with
+    a NaN in one lane's C^pp (NaN where the plain version has NaN): on
+    the flux path's layered operands (33 layers x lanes) and on the
+    generic path's flat all-mode lanes (a one-layer view, their first
+    `lanes`)."""
+    from sbdart_tpu_torch.kernels.eig_chain import (
+        chain_entry, eig_chain, eig_chain_plain)
+
+    if layout == "layered":
+        front, _ = _general(lanes, nstr, cuda_device)
+        cppl, cpml, mu, w = front[0], front[1], front[5], front[6]
+    else:
+        (cppl, cpml, mu, w), _ = _generic(nstr, 384, 9, cuda_device,
+                                          onlyfl=False)["eig_chain_lane"]
+        cppl, cpml = (x[None, ..., :lanes].contiguous() for x in (cppl, cpml))
+    assert chain_entry(nstr // 2) == "sbdart_eig_chain_group"
+    ops = (_nan_column(cppl, cppl.shape[-1] // 2), cpml)
+    before = eig_chain.launches
+    got = eig_chain(*ops, mu, w)
+    torch.cuda.synchronize()
+    assert eig_chain.launches == before + 1
+    for name, g, w_ in zip(NAMES, got, eig_chain_plain(*ops, mu, w)):
+        _assert_equal(g, w_, name)
+    assert bool(torch.isnan(got[0]).any())
 
 
 @pytest.mark.cuda
@@ -396,9 +429,10 @@ def test_eig_chain_kernel_matches_plain(cuda_device, nstr, lanes):
 def test_block_thomas_kernel_matches_plain(cuda_device, nstr, cols):
     """B10 on the blocks solver/bvp.py:assemble_blocks builds from the
     generic path's all-mode BVP (m = nstr = 2 .. 16, 9 layers, 130
-    band-columns x nstr modes), and on the first 130 columns."""
+    band-columns x nstr modes), and on the first 130 columns, equal to
+    its plain version element for element."""
     from sbdart_tpu_torch.kernels.blocktri import (
-        block_thomas, block_thomas_plain)
+        block_thomas, block_thomas_group, block_thomas_plain)
     from sbdart_tpu_torch.solver.bvp import assemble_blocks
 
     (gp, gm, ee, refl, rhs), _ = _generic(nstr, 130, 9, cuda_device,
@@ -409,11 +443,72 @@ def test_block_thomas_kernel_matches_plain(cuda_device, nstr, cols):
     keep = torch.isfinite(rhs).all(dim=0).all(dim=0)
     ops = tuple(x[..., keep][..., :cols].contiguous()
                 for x in (*assemble_blocks(gp, gm, ee, refl), rhs))
-    before = block_thomas.launches
+    before = block_thomas.launches + block_thomas_group.launches
     got = block_thomas(*ops)
     torch.cuda.synchronize()
-    assert block_thomas.launches == before + 1
-    _assert_close(got, block_thomas_plain(*ops), "xs")
+    assert block_thomas.launches + block_thomas_group.launches == before + 1
+    _assert_equal(got, block_thomas_plain(*ops), "xs")
+
+
+def _dense_blocks(m, nlyr, ncol, device, seed=0):
+    """Random B10 operands on the card (diag, lower, upper, rhs), the
+    diagonally dominant systems of tests/test_torch_block_thomas.py, with
+    a NaN in one column's right-hand side (chip_smoke.with_nan's
+    pattern)."""
+    import chip_smoke
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    eye = torch.eye(m, device=device)[None, :, :, None]
+    return chip_smoke.with_nan((randn(nlyr, m, m, ncol) + 4.0 * eye,
+                                0.3 * randn(nlyr, m, m, ncol),
+                                0.3 * randn(nlyr, m, m, ncol),
+                                randn(nlyr, m, ncol)))
+
+
+BT_M = [2, 4, 6, 7, 8, 10, 12, 14, 16, 18, 20]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", BT_M)
+@pytest.mark.parametrize("ncol", [4096, 130])
+def test_block_thomas_group_matches_plain(cuda_device, m, ncol):
+    """B10's group kernel at every even m from 2 to 20 and at m = 7 (its
+    rows instance, its instance per m, m a run-time argument), 33 layers,
+    equal to its plain version element for element, NaN column
+    included."""
+    from sbdart_tpu_torch.kernels.blocktri import (
+        block_thomas_group, block_thomas_plain)
+
+    ops = _dense_blocks(m, 33, ncol, cuda_device)
+    before = block_thomas_group.launches
+    got = block_thomas_group(*ops)
+    torch.cuda.synchronize()
+    assert block_thomas_group.launches == before + 1
+    _assert_equal(got, block_thomas_plain(*ops), "xs")
+    assert bool(torch.isnan(got).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2, 4, 6, 8, 10, 12, 14, 16, 18])
+def test_block_thomas_routes_each_m(cuda_device, m):
+    """B10 through block_thomas's route at each m in and out of
+    BT_ONE_THREAD_M (33 layers x 130 columns): the launch counters show
+    the body thomas_entry names ran, equal to the plain version."""
+    from sbdart_tpu_torch.kernels.blocktri import (
+        block_thomas, block_thomas_group, block_thomas_plain, thomas_entry)
+
+    ops = _dense_blocks(m, 33, 130, cuda_device)
+    before = (block_thomas.launches, block_thomas_group.launches)
+    got = block_thomas(*ops)
+    torch.cuda.synchronize()
+    one = thomas_entry(m) == "sbdart_block_thomas"
+    assert (block_thomas.launches, block_thomas_group.launches) == (
+        before[0] + one, before[1] + (not one))
+    _assert_equal(got, block_thomas_plain(*ops), "xs")
 
 
 @pytest.mark.cuda
@@ -468,6 +563,12 @@ def test_generic_solve_kernels_match_plain(cuda_device, nstr, kw, kernel,
               "eig_beam_chain": "eig_beam", "block_thomas": "blocktri"}[kernel]
     if kernel == "block_thomas_rt":
         launches = _rt_launches
+    elif kernel == "block_thomas":
+        from sbdart_tpu_torch.kernels.blocktri import (
+            block_thomas, block_thomas_group)
+
+        def launches():   # B10's two designs (BT_ONE_THREAD_M)
+            return block_thomas.launches + block_thomas_group.launches
     else:
         wrapper = getattr(importlib.import_module(
             f"sbdart_tpu_torch.kernels.{module}"), kernel)
