@@ -40,7 +40,11 @@ Phases, one JSON line each; the first failure exits non-zero:
               (N = 8, 4, 2, 3, 5), and
               both designs where the reference streams at N = 2 (480
               layers x 49152 columns) and N = 3 (250 x 12288), the shapes
-              the wrapper's rule by N is read at; the
+              the wrapper's rule by N is read at; B6 backward (its lane
+              group kernel: the route runs it at every N) with a NaN
+              column at N = 2 and 3 at those shapes, N = 8 (65 x 6144),
+              10 (G7's 65 x 6144) and 16 (G9's 65 x 768), the shapes
+              blocktri_rt_streamed.BWD_ONE_THREAD_N is read at; the
               group kernels past N = 8 on the generic path's flux BVP with
               a NaN injected in one column's right-hand side: B6 forward
               and backward at N = 10 (G7's, 65 layers x 6144) and N = 16
@@ -488,7 +492,8 @@ def generic_kernel_operands(args, kw):
     return seen
 
 
-# each group-per-column kernel and the one-thread kernel whose work it does
+# each group-per-column kernel and the one-thread kernel whose work it
+# does (the name flops_of counts it under)
 GROUP_OF = {"blocktri_rt_fwd_group": "blocktri_rt_fwd",
             "blocktri_rt_bwd_group": "blocktri_rt_bwd",
             "blocktri_rt_group": "blocktri_rt",
@@ -544,7 +549,9 @@ def flops_of(kname, args):
     # the surface rows' R [gm e, gp] (4 N^3) count on the last layer only,
     # the one where the plain versions' factor `last` is not 0
     surface = 0 if kname == "blocktri_rt_bwd" else 4 * n**3
-    return b * (nlyr * per + surface)
+    # B6 backward's recursion runs over layers L - 2 .. 0
+    layers = nlyr - 1 if kname == "blocktri_rt_bwd" else nlyr
+    return b * (layers * per + surface)
 
 
 def bound_of(kname, args, outs):
@@ -553,12 +560,17 @@ def bound_of(kname, args, outs):
     over 3.35 TB/s and its operations over 67 TFLOP/s (float32)."""
     import torch
 
+    flops = flops_of(kname, args)
+    if GROUP_OF.get(kname, kname) == "blocktri_rt_bwd":
+        # the recursion reads ub_l from layer l + 1 and C_l of layers
+        # 0..L-2 only (x_{L-1} = y_{L-1})
+        gp, gm, ee, cs, ys = args
+        args = (gp[1:], gm[1:], ee[1:], cs[:-1], ys)
     seen, nbytes = set(), 0
     for t in list(args) + list(outs):
         if isinstance(t, torch.Tensor) and t.data_ptr() not in seen:
             seen.add(t.data_ptr())
             nbytes += t.numel() * t.element_size()
-    flops = flops_of(kname, args)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / F32_FLOPS_PER_S
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
@@ -710,8 +722,9 @@ def bt_kernel(m):
 def bvp_calls(bvp, hist):
     """The check_kernel calls of B5 and B6 forward (each in both designs
     where both are built: the one-thread kernels at the N of
-    RT_ONE_THREAD_N and FWD_ONE_THREAD_N) and B6 backward (on the plain
-    forward's history `hist`) on one BVP's operands."""
+    RT_ONE_THREAD_N and FWD_ONE_THREAD_N) and B6 backward (through its
+    route, on the plain forward's history `hist`) on one BVP's
+    operands."""
     from sbdart_tpu_torch.kernels.blocktri_rt import (
         RT_ONE_THREAD_N, block_thomas_rt, block_thomas_rt_group,
         block_thomas_rt_plain)
@@ -733,7 +746,7 @@ def bvp_calls(bvp, hist):
         "blocktri_rt_fwd_group": (
             ("cs", "ys"), lambda: block_thomas_rt_fwd_group(*bvp),
             lambda: block_thomas_rt_fwd_plain(*bvp), 2, bvp),
-        "blocktri_rt_bwd": (
+        "blocktri_rt_bwd_group": (
             ("xs",), lambda: block_thomas_rt_bwd(*bvp[:3], *hist),
             lambda: block_thomas_rt_bwd_plain(*bvp[:3], *hist), 3,
             bvp[:3] + tuple(hist)),
@@ -761,11 +774,12 @@ def phase_kernels_general(device, reps):
     # (nstr, layers, columns)
     cases = [(4, NLYR, NBC), (16, NLYR16, NBC16), (8, NLYR, NBC16)]
     # the nstr whose shape gives each kernel's times in the summary: one
-    # where the main path runs it
+    # where the main path runs it (B6 backward's are bwd_rule's, on
+    # contiguous operands)
     summary_nstr = {"eig_n2_scatter": 4, "eig_beam": 16,
                     "blocktri_rt": None, "blocktri_rt_group": None,
                     "blocktri_rt_fwd": None, "blocktri_rt_fwd_group": 16,
-                    "blocktri_rt_bwd": 16}
+                    "blocktri_rt_bwd_group": None}
     for nstr, nlyr, nbc in cases:
         for cols, nk in ((nbc, NK), (130, 1)):
             prob = flux_problem(cols, nk, nlyr, device, nmom=nstr + 1,
@@ -795,8 +809,8 @@ def phase_kernels_general(device, reps):
                 row["on_main_path"] = (
                     kname in ("eig_beam", "eig_n2_scatter")
                     or (kname == rt_kernel(nstr // 2) and not streams)
-                    or (kname in ("blocktri_rt_fwd_group", "blocktri_rt_bwd")
-                        and streams))
+                    or (kname in ("blocktri_rt_fwd_group",
+                                  "blocktri_rt_bwd_group") and streams))
                 fold(summary, row,
                      main=summary_nstr[kname] == nstr and cols == nbc)
                 rows.append(row)
@@ -932,6 +946,88 @@ def phase_kernels_fwd_rule(device, reps):
               "columns": bvp[0].shape[-1], "one_thread": n in FWD_ONE_THREAD_N,
               "bar": KERNEL_BAR, "results": rows})
         del bvp, rows
+        torch.cuda.empty_cache()
+    return summary
+
+
+# the shapes at which the bwd_rule phase times B6 backward: (N, nstr,
+# band-columns, layers, keywords of generic_problem, or None for the nstr=4
+# flux cell's operands, "flux" for the flux path's at nstr, "random" for
+# random_bvp's); x 3 k-terms.  N = 2 and 3 where the reference streams them
+# (as fwd_rule), 8 the nstr16-flux-65L cell (65 x 6144), 10 G7's (65 x
+# 6144), 16 G9's (its per-mode BVP, 65 x 768; here flux-only, the same
+# shape).  Past N = 16, the run-time-N instance: N = 20 and 32 at 65 layers
+# of 6144 and of 768 columns, and 64 at G10's deck (3 layers x 12 columns).
+BWD_RULE = [(2, 4, NBC, 480, None),
+            (3, 6, 4096, 250, dict(onlyfl=True, planck=True)),
+            (8, 16, NBC16, NLYR16, "flux"),
+            (10, 20, NBC16, NLYR16, dict(onlyfl=True)),
+            (16, 32, NBC_RAD16, NLYR16, dict(onlyfl=True)),
+            (20, 40, NBC16, NLYR16, "random"),
+            (20, 40, NBC_RAD16, NLYR16, "random"),
+            (32, 64, NBC16, NLYR16, "random"),
+            (32, 64, NBC_RAD16, NLYR16, "random"),
+            (64, 128, 4, 3, "random")]
+
+
+def bwd_operands(case, device):
+    """B6 backward's operands at one of BWD_RULE's shapes: the BVP's gp,
+    gm, ee with a NaN in one column's right-hand side, and the history the
+    forward kernel makes of it (equal to its plain version's: the other
+    phases hold it so), as (gp, gm, ee, cs, ys)."""
+    from sbdart_tpu_torch.kernels.blocktri_rt_streamed import (
+        block_thomas_rt_fwd, reference_route)
+
+    n, nstr, nbc, nlyr, kw = case
+    if kw == "random":
+        bvp = random_bvp(n, nlyr, nbc * NK, device)
+    elif kw is None:
+        bvp = kernel_operands(flux_problem(nbc, NK, nlyr, device))[3]
+    elif kw == "flux":
+        bvp = general_kernel_operands(flux_problem(
+            nbc, NK, nlyr, device, nmom=nstr + 1), nstr)[1]
+    else:
+        bvp, _ = generic_kernel_operands(*generic_problem(
+            nbc, NK, nlyr, device, nstr=nstr, **kw))["solve_bvp"]
+    if reference_route(nlyr, n) != "streamed":
+        raise SmokeFailure(f"N = {n} at {nlyr} layers is not B6's shape")
+    bvp = with_nan(tuple(x.contiguous() for x in bvp))
+    return bvp[:3] + tuple(block_thomas_rt_fwd(*bvp))
+
+
+def phase_kernels_bwd_rule(device, reps):
+    """B6 backward at each shape of BWD_RULE (the N BWD_ONE_THREAD_N is
+    read at, and the run-time-N instance's placements) through its route,
+    against the plain version (NaN column included) and timed.  The route
+    runs the lane group kernel at every N (BWD_ONE_THREAD_N is empty: no
+    one-thread backward kernel is built; `--ab` times the parent's
+    one-thread kernel at these shapes)."""
+    import torch
+
+    from sbdart_tpu_torch.kernels.blocktri_rt_streamed import (
+        BWD_ONE_THREAD_N, block_thomas_rt_bwd, block_thomas_rt_bwd_plain)
+
+    summary = {}
+    for case in BWD_RULE:
+        n = case[0]
+        ops = bwd_operands(case, device)
+
+        def kern():
+            return block_thomas_rt_bwd(*ops)
+
+        def plain():
+            return block_thomas_rt_bwd_plain(*ops)
+
+        row = check_kernel("blocktri_rt_bwd_group", ("xs",), kern, plain,
+                           ops[0].shape[-1], ops)
+        time_kernel(row, kern, plain, reps, 1)
+        # the kernels line: the nstr16-flux-65L cell's shape
+        fold(summary, row, main=n == 8)
+        emit({"phase": "kernel", "path": "bwd_rule", "n": n,
+              "layers": ops[0].shape[0], "columns": ops[0].shape[-1],
+              "one_thread": n in BWD_ONE_THREAD_N, "bar": KERNEL_BAR,
+              "results": [row]})
+        del ops, row
         torch.cuda.empty_cache()
     return summary
 
@@ -1077,10 +1173,10 @@ def phase_kernels_group(device, reps):
     from sbdart_tpu_torch.solver.bvp import assemble_blocks
 
     summary = {}
-    # the shape whose times stand in the kernels summary (B6 forward's is
-    # N = 8, in phase_kernels_general; B10's group kernel's G2, m = 8, in
-    # phase_kernels_generic)
-    main = {"blocktri_rt_bwd_group": "G7"}
+    # the shapes whose times stand in the kernels summary are elsewhere:
+    # B6's at N = 8 (phase_kernels_general, and backward's bwd_rule), B5's
+    # group kernel's at N = 4 (rt_rule), B10's group kernel's G2, m = 8
+    # (phase_kernels_generic)
     for name, nstr, nbc, nlyr in GROUP_SHAPES:
         bvp, _ = generic_kernel_operands(*generic_problem(
             nbc, NK, nlyr, device, nstr=nstr, onlyfl=True))["solve_bvp"]
@@ -1121,7 +1217,7 @@ def phase_kernels_group(device, reps):
                            1 if kname == "block_thomas_group" else 2))
             if cols != 130:
                 time_kernel(row, kern, plain, reps, plain_reps)
-            fold(summary, row, main=cols != 130 and main.get(kname) == name)
+            fold(summary, row, main=False)
             rows.append(row)
         emit({"phase": "kernel", "path": "group", "shape": name,
               "nstr": nstr, "bar": KERNEL_BAR, "results": rows})
@@ -1311,13 +1407,13 @@ def group_limits(device):
     rt, st, bt = (lib.sbdart_blocktri_rt_group_bytes,
                   lib.sbdart_blocktri_rt_streamed_group_bytes,
                   lib.sbdart_block_thomas_group_bytes)
+    bwd = lib.sbdart_blocktri_rt_bwd_group_bytes
     return optin, {
         "blocktri_rt_group": (first(lambda n: rt(n, 0)),
                               first(lambda n: rt(n, 1))),
         "blocktri_rt_fwd_group": (first(lambda n: st(0, n)),
                                   first(lambda n: st(2, n))),
-        "blocktri_rt_bwd_group": (first(lambda n: st(1, n)),
-                                  first(lambda n: st(1, n))),
+        "blocktri_rt_bwd_group": (first(bwd), first(bwd)),
         "block_thomas_group": (first(lambda m: bt(m, 0)),
                                first(lambda m: bt(m, 1))),
     }
@@ -1763,10 +1859,6 @@ KERNELS = {   # name: (wrapper module, wrapper, source, the TPU kernel,
                         "blocktri_rt_streamed.cuh",
                         "sbdart_tpu/pallas/blocktri.py:373",
                         "blocktri_rt_fwd_kernel"),
-    "blocktri_rt_bwd": ("blocktri_rt_streamed", "block_thomas_rt_bwd",
-                        "blocktri_rt_streamed.cuh",
-                        "sbdart_tpu/pallas/blocktri.py:457",
-                        "blocktri_rt_bwd_kernel"),
     "radsrc": ("radsrc", "rad_source_lane", "radsrc.cu",
                "sbdart_tpu/pallas/radsrc.py:61", "radsrc_kernel"),
     "eig_n2_planar": ("eig_n2", "eig_beam_chain_n2", "eig_n2_planar.cu",
@@ -1786,7 +1878,7 @@ KERNELS = {   # name: (wrapper module, wrapper, source, the TPU kernel,
                               "blocktri_rt_fwd_group_kernel"),
     "blocktri_rt_bwd_group": ("blocktri_rt_streamed",
                               "block_thomas_rt_bwd_group",
-                              "blocktri_rt_streamed_group.cu",
+                              "blocktri_rt_bwd.cu",
                               "sbdart_tpu/pallas/blocktri.py:457",
                               "blocktri_rt_bwd_group_kernel"),
     "blocktri_rt_group": ("blocktri_rt", "block_thomas_rt_group",
@@ -1859,6 +1951,7 @@ def main() -> int:
                  phase_kernels_radiance(device, reps=20),
                  phase_kernels_bvp_n2(device, reps=10),
                  phase_kernels_fwd_rule(device, reps=5),
+                 phase_kernels_bwd_rule(device, reps=5),
                  phase_kernels_generic(device, reps=10),
                  phase_kernels_group(device, reps=5),
                  phase_kernels_rt_rule(device, reps=10),
@@ -1876,7 +1969,7 @@ def main() -> int:
          ("eig_n2_deltam", "blocktri_rt_n2")),
         (lambda: phase_solve(device, reps=10, nstr=16, nbc=NBC16,
                              nlyr=NLYR16),
-         ("eig_beam", "blocktri_rt_fwd_group", "blocktri_rt_bwd")),
+         ("eig_beam", "blocktri_rt_fwd_group", "blocktri_rt_bwd_group")),
         (lambda: phase_solve(device, reps=10, planck=True),
          ("eig_n2_scatter", "blocktri_rt_n2")),
         (lambda: phase_solve(device, reps=10, nlyr=65),
@@ -1886,10 +1979,12 @@ def main() -> int:
          ("eig_n2_planar", "blocktri_rt_n2", "radsrc")),
         (lambda: phase_radiance(device, reps=10, nstr=16, nbc=NBC_RAD16,
                                 nlyr=NLYR16),
-         ("eig_beam", "blocktri_rt_fwd_group", "blocktri_rt_bwd", "radsrc")),
+         ("eig_beam", "blocktri_rt_fwd_group", "blocktri_rt_bwd_group",
+          "radsrc")),
         (lambda: phase_radiance(device, reps=5, nstr=16, nbc=NBC16,
                                 nlyr=NLYR16),
-         ("eig_beam", "blocktri_rt_fwd_group", "blocktri_rt_bwd", "radsrc")),
+         ("eig_beam", "blocktri_rt_fwd_group", "blocktri_rt_bwd_group",
+          "radsrc")),
         (lambda: phase_radiance(device, reps=10, nstr=8, nbc=512,
                                 nlyr=NLYR, planck=True, brdf=True),
          ("eig_beam", rt_kernel(4), "radsrc")),
@@ -1898,7 +1993,7 @@ def main() -> int:
         (phase_cli_config3, ("eig_beam", rt_kernel(8))),
         (phase_cli_config4, ("eig_beam", rt_kernel(8), "radsrc")),
         (lambda: phase_generic(device, 3, "G1"),
-         ("eig_chain", "blocktri_rt_fwd_group", "blocktri_rt_bwd")),
+         ("eig_chain", "blocktri_rt_fwd_group", "blocktri_rt_bwd_group")),
         (lambda: phase_generic(device, 5, "G2"), ("eig_chain", rt_kernel(4))),
         (lambda: phase_generic(device, 5, "G2", bvp_method="scan"),
          ("eig_chain", bt_kernel(8))),
@@ -1966,14 +2061,17 @@ def ab_cases(device):
     layered at 65 x 6144 (N = 4, 6, 8) and
     flat at 16 x 65 x 256; B5's designs at rt_operands' shapes and the
     group kernel at G8's (N = 9) and at N = 20 (6 x 6144); B6 forward's
-    group kernel at N = 2 (480 x 49152), 8, 10 and 16 (65 x 6144), its
-    backward kernels at N = 8 (one-thread), 10 and 16 (group); B10's
-    group kernel on G7's blocks (m = 20)."""
+    group kernel at N = 2 (480 x 49152), 8, 10 and 16 (65 x 6144); B6
+    backward through its route (the parent's: one thread to N = 8, the
+    group kernel past) at each shape of BWD_RULE and at N = 16 x 65 x
+    6144;
+    B10's group kernel on G7's blocks (m = 20); B2 at 33 x 49152."""
     from sbdart_tpu_torch.kernels import blocktri_rt as b5
     from sbdart_tpu_torch.kernels import blocktri_rt_streamed as b6
     from sbdart_tpu_torch.kernels import eig_beam as b4
     from sbdart_tpu_torch.kernels.blocktri import (
         block_thomas, block_thomas_group)
+    from sbdart_tpu_torch.kernels.blocktri_n2 import block_thomas_rt_n2
     from sbdart_tpu_torch.kernels.eig_chain import eig_chain
     from sbdart_tpu_torch.solver.bvp import assemble_blocks
 
@@ -2010,9 +2108,6 @@ def ab_cases(device):
         if n == 8:
             yield "blocktri_rt_fwd_group", 8, bvp[0].shape, (
                 lambda bvp=bvp: b6.block_thomas_rt_fwd_group(*bvp))
-            hist = b6.block_thomas_rt_fwd_plain(*bvp)
-            yield "blocktri_rt_bwd", 8, bvp[0].shape, (
-                lambda bvp=bvp, h=hist: b6.block_thomas_rt_bwd(*bvp[:3], *h))
     ops = radiance_kernel_operands(*radiance_problem(NBC_RAD16, NLYR16, device,
                                                      nstr=16))
     (cppl, cpml, r1, r2, mu0, tab), _ = ops["eig_beam_chain_lane"]
@@ -2044,10 +2139,11 @@ def ab_cases(device):
         if nlyr == NLYR16:
             yield "blocktri_rt_fwd_group", n, bvp[0].shape, (
                 lambda bvp=bvp: b6.block_thomas_rt_fwd_group(*bvp))
-            hist = b6.block_thomas_rt_fwd_plain(*bvp)
-            yield "blocktri_rt_bwd_group", n, bvp[0].shape, (
-                lambda bvp=bvp, h=hist: b6.block_thomas_rt_bwd_group(
-                    *bvp[:3], *h))
+            if name == "N16":   # BWD_RULE has G7's shape and G9's
+                hist = b6.block_thomas_rt_fwd_plain(*bvp)
+                yield "blocktri_rt_bwd/route", n, bvp[0].shape, (
+                    lambda bvp=bvp, h=hist: b6.block_thomas_rt_bwd(
+                        *bvp[:3], *h))
         else:
             yield "blocktri_rt_group", n, bvp[0].shape, (
                 lambda bvp=bvp: b5.block_thomas_rt_group(*bvp))
@@ -2060,6 +2156,17 @@ def ab_cases(device):
     bvp = tuple(x.contiguous() for x in bvp)
     yield "blocktri_rt_fwd_group", 2, bvp[0].shape, (
         lambda bvp=bvp: b6.block_thomas_rt_fwd_group(*bvp))
+    del bvp
+    for case in BWD_RULE:
+        n = case[0]
+        ops = bwd_operands(case, device)
+        yield "blocktri_rt_bwd/route", n, ops[0].shape, (
+            lambda ops=ops: b6.block_thomas_rt_bwd(*ops))
+        del ops
+    b2_ops = kernel_operands(flux_problem(NBC, NK, NLYR, device))[3]
+    b2_ops = tuple(x.contiguous() for x in b2_ops)
+    yield "blocktri_rt_n2", 2, b2_ops[0].shape, (
+        lambda ops=b2_ops: block_thomas_rt_n2(*ops))
 
 
 def ab_times(tree) -> int:

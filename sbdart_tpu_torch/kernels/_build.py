@@ -30,10 +30,11 @@ SOURCES = ("eig_n2_deltam.cu", "eig_n2_scatter.cu", "eig_n2_planar.cu",
            "eig_beam_group.cu", "eig_chain.cu", "blocktri_rt_n2.cu",
            "blocktri_rt.cu", "blocktri_rt_group.cu",
            "blocktri_rt_streamed.cu", "blocktri_rt_streamed_odd.cu",
-           "blocktri_rt_streamed_group.cu", "block_thomas.cu", "radsrc.cu")
+           "blocktri_rt_streamed_group.cu", "blocktri_rt_bwd.cu",
+           "block_thomas.cu", "radsrc.cu")
 HEADERS = ("eig_n2_chain.cuh", "eig_chain.cuh", "eig_group.cuh",
-           "solve_step.cuh",
-           "group_solve.cuh", "blocktri_rt_streamed.cuh")
+           "solve_step.cuh", "group_solve.cuh", "blocktri_rt_streamed.cuh",
+           "ring.cuh")
 # IEEE sqrt/div/exp (no --use_fast_math) and no contracted multiply-adds:
 # the kernels round where their plain torch versions do.
 NVCC_FLAGS = (
@@ -136,8 +137,6 @@ def library() -> ctypes.CDLL:
     lib.sbdart_blocktri_rt.restype = _I
     lib.sbdart_blocktri_rt_fwd.argtypes = [_P] * 7 + [_I, _I, _I, _P]
     lib.sbdart_blocktri_rt_fwd.restype = _I
-    lib.sbdart_blocktri_rt_bwd.argtypes = [_P] * 6 + [_I, _I, _I, _P]
-    lib.sbdart_blocktri_rt_bwd.restype = _I
     lib.sbdart_blocktri_rt_fwd_group.argtypes = [_P] * 8 + [_I, _I, _I, _P]
     lib.sbdart_blocktri_rt_fwd_group.restype = _I
     lib.sbdart_blocktri_rt_bwd_group.argtypes = [_P] * 6 + [_I, _I, _I, _P]
@@ -148,6 +147,8 @@ def library() -> ctypes.CDLL:
     lib.sbdart_block_thomas_group.restype = _I
     lib.sbdart_blocktri_rt_streamed_group_bytes.argtypes = [_I, _I]
     lib.sbdart_blocktri_rt_streamed_group_bytes.restype = _I
+    lib.sbdart_blocktri_rt_bwd_group_bytes.argtypes = [_I]
+    lib.sbdart_blocktri_rt_bwd_group_bytes.restype = _I
     lib.sbdart_blocktri_rt_group_bytes.argtypes = [_I, _I]
     lib.sbdart_blocktri_rt_group_bytes.restype = _I
     lib.sbdart_block_thomas_group_bytes.argtypes = [_I, _I]

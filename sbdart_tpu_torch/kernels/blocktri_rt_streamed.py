@@ -24,13 +24,15 @@ VMEM and pads them with identity layers; neither changes a real layer's
 value, and neither is kept.
 
 `block_thomas_rt_fwd` and `block_thomas_rt_bwd` launch CUDA kernels on
-CUDA tensors and run their plain versions on CPU tensors.  Two designs:
-one thread per column (csrc/blocktri_rt_streamed.cuh, templated on N) and
-a group of lanes per column on the elimination core
-(csrc/blocktri_rt_streamed_group.cu, N a run-time argument, up to the N
-whose system fills the card's shared memory).  The forward kernel's design
-by N is `FWD_ONE_THREAD_N`; the backward kernel is the one-thread one to
-N = 8 and `block_thomas_rt_bwd_group` past it.  Inputs gp/gm [L, N, N, B],
+CUDA tensors and run their plain versions on CPU tensors.  The forward
+kernel has two designs, one thread per column
+(csrc/blocktri_rt_streamed.cuh, templated on N) and a group of lanes per
+column on the elimination core (csrc/blocktri_rt_streamed_group.cu, N a
+run-time argument, up to the N whose system fills the card's shared
+memory), picked by `FWD_ONE_THREAD_N`.  The backward kernel is a lane
+group per column streaming the layers through a ring of shared-memory
+slots (csrc/blocktri_rt_bwd.cu, `block_thomas_rt_bwd_group`), at every N
+(`BWD_ONE_THREAD_N` is empty).  Inputs gp/gm [L, N, N, B],
 ee [L, N, B], refl [N, N, B], rhs [L, 2N, B]; the history is cs
 [L, 2N, N, B] and ys [L, 2N, B]; the solution xs [L, 2N, B].
 """
@@ -174,18 +176,6 @@ def _launch(name, entry, ins, outs, nlyr, n, b, extra=()):
     _build.check(code, name)
 
 
-def _group_fits(name, kind, n, device):
-    """Refuse an N whose column does not fit the card's shared memory: for
-    the forward kernel (kind 2) its system, the rest moving to device
-    scratch past that; for the backward kernel (kind 1) the whole column."""
-    from sbdart_tpu_torch.kernels import _build
-
-    lib = _build.library()
-    _build.require_shared_memory(
-        name, lambda k: lib.sbdart_blocktri_rt_streamed_group_bytes(kind, k),
-        n, device)
-
-
 # B6 forward's design by N: the one-thread-per-column kernel
 # (blocktri_rt_streamed.cuh, built at these N only) at these N, the group
 # kernel (blocktri_rt_streamed_group.cu) at every other N.  Both are timed
@@ -233,41 +223,64 @@ def block_thomas_rt_fwd_group(gp, gm, ee, refl, rhs):
     entry = "sbdart_blocktri_rt_fwd_group"
     nlyr, n, _, b = gp.shape
     _check_shapes(name, n, {}, ())
-    _group_fits(name, 2, n, gp.device)
-    scratch = _build.group_scratch(_build.library(), entry, n, b, gp.device)
+    # refused where one column's system does not fit the card's shared
+    # memory (the rest moves to device scratch past the whole column)
+    lib = _build.library()
+    _build.require_shared_memory(
+        name, lambda k: lib.sbdart_blocktri_rt_streamed_group_bytes(2, k), n,
+        gp.device)
+    scratch = _build.group_scratch(lib, entry, n, b, gp.device)
     out = _fwd_kernel(name, entry, gp, gm, ee, refl, rhs,
                       [_build.ptr(scratch)])
     block_thomas_rt_fwd_group.launches += 1
     return out
 
 
+# B6 backward's design by N: the N at which one thread per column would
+# run instead of the lane group kernel (blocktri_rt_bwd.cu).  None: the
+# lane group kernel was ahead of the one-thread kernel at every N timed on
+# the main path's shapes (chip_smoke.py's bwd_rule shapes N = 2, 3, 8, and
+# its --ab against the one-thread kernel to N = 8; PERF.md §6), so no
+# one-thread backward kernel is built, and an N put here has none to run.
+BWD_ONE_THREAD_N = frozenset()
+
+
+def bwd_entry(n: int) -> str:
+    """The C entry that runs B6 backward at N = n: the lane group
+    kernel's at every N outside BWD_ONE_THREAD_N; inside it a ValueError,
+    as no one-thread backward kernel is built."""
+    if n in BWD_ONE_THREAD_N:
+        raise ValueError(f"block_thomas_rt_bwd: no one-thread kernel is "
+                         f"built for N = {n}")
+    return "sbdart_blocktri_rt_bwd_group"
+
+
 def block_thomas_rt_bwd(gp, gm, ee, cs, ys):
-    """B6 backward: the one-thread CUDA kernel on CUDA tensors at N = 1 to
-    8 (float32 only), `block_thomas_rt_bwd_group` past N = 8, the plain
-    torch version on CPU tensors.  Returns xs."""
+    """B6 backward through its route, `bwd_entry`: on CUDA tensors
+    `block_thomas_rt_bwd_group` at every N outside BWD_ONE_THREAD_N (which
+    is empty); the plain torch version on CPU tensors.  Returns xs."""
     if gp.device.type == "cpu":
         return block_thomas_rt_bwd_plain(gp, gm, ee, cs, ys)
-    nlyr, n, _, b = gp.shape
-    if n > 8:
-        return block_thomas_rt_bwd_group(gp, gm, ee, cs, ys)
-    ins = _bwd_inputs("block_thomas_rt_bwd", gp, gm, ee, cs, ys)
-    xs = torch.empty((nlyr, 2 * n, b), device=gp.device, dtype=torch.float32)
-    _launch("block_thomas_rt_bwd", "sbdart_blocktri_rt_bwd", ins, [xs], nlyr,
-            n, b)
-    block_thomas_rt_bwd.launches += 1
-    return xs
+    bwd_entry(gp.shape[1])   # raises where BWD_ONE_THREAD_N routes away
+    return block_thomas_rt_bwd_group(gp, gm, ee, cs, ys)
 
 
 def block_thomas_rt_bwd_group(gp, gm, ee, cs, ys):
-    """B6 backward on a group of lanes per column, any N (the CUDA kernel
-    of csrc/blocktri_rt_streamed_group.cu on CUDA tensors, float32 only;
-    the plain torch version on CPU tensors).  Returns xs."""
+    """B6 backward on a lane group per column, any N up to the one whose
+    layer slot fills the card's shared memory (the CUDA kernel of
+    csrc/blocktri_rt_bwd.cu on CUDA tensors, float32 only; the plain torch
+    version on CPU tensors).  Returns xs."""
     if gp.device.type == "cpu":
         return block_thomas_rt_bwd_plain(gp, gm, ee, cs, ys)
+    from sbdart_tpu_torch.kernels import _build
+
     name = "block_thomas_rt_bwd_group"
     ins = _bwd_inputs(name, gp, gm, ee, cs, ys)
     nlyr, n, _, b = gp.shape
-    _group_fits(name, 1, n, gp.device)
+    # refused where one layer slot of one column does not fit
+    _build.require_shared_memory(
+        name, _build.library().sbdart_blocktri_rt_bwd_group_bytes, n,
+        gp.device)
     xs = torch.empty((nlyr, 2 * n, b), device=gp.device, dtype=torch.float32)
     _launch(name, "sbdart_blocktri_rt_bwd_group", ins, [xs], nlyr, n, b)
     block_thomas_rt_bwd_group.launches += 1
@@ -296,5 +309,4 @@ def solve_bvp(gp, gm, ee, refl, rhs, *, kernels=True):
 
 block_thomas_rt_fwd.launches = 0
 block_thomas_rt_fwd_group.launches = 0
-block_thomas_rt_bwd.launches = 0
 block_thomas_rt_bwd_group.launches = 0

@@ -1,44 +1,36 @@
-// Fused SETMTX + SOLVE0 for general n with the rank-N factor history
-// (N = 1..8; m = 2N <= 16): the boundary-value solve of one column as two
-// kernels, a forward elimination and a backward substitution, one thread
-// per column each.  The forward kernel is built at N <= 3 only: from N = 4
-// the group kernel of blocktri_rt_streamed_group.cu is faster.  The kernel templates live here;
-// blocktri_rt_streamed.cu instantiates them at even N and
-// blocktri_rt_streamed_odd.cu at odd N, so that the two compile in
-// parallel.
+// B6 forward, one thread per column (N = 1..3: FWD_ONE_THREAD_N in
+// kernels/blocktri_rt_streamed.py; from N = 4 the group kernel of
+// blocktri_rt_streamed_group.cu is faster): the forward elimination of
+// the boundary-value solve with the rank-N factor history.  The kernel
+// template lives here; blocktri_rt_streamed.cu instantiates it at N = 2
+// and blocktri_rt_streamed_odd.cu at N = 1 and 3, so that the two compile
+// in parallel.  B6 backward is blocktri_rt_bwd.cu.
 //
-// Replaces the TPU kernels sbdart_tpu/pallas/blocktri.py:
-// _rt_fwd_chunk_kernel and _rt_bwd_chunk_kernel (the streamed variant of
-// block_thomas_rt).  The blocks are assembled on the fly as in
-// blocktri_rt.cu (B5); what differs is the factor kept per layer.  The
-// upper block's only nonzero rows are its bottom N, upper_l = [[0], [ub_l]]
-// with ub_l = -[gp_{l+1}, gm_{l+1} e_{l+1}], so the Thomas factor
-// W_l = dt_l^-1 upper_l = C_l ub_l with C_l = dt_l^-1[:, N:] (2N x N).
-//   forward:  dt_l = diag_l - [(lt_l C_{l-1}) ub_{l-1}; 0], where
-//             ub_{l-1} is built from layer l's own gp/gm/ee; solve
-//             dt_l [C_l | y_l] = [I_bottom | r_l - [lt_l y_{l-1}; 0]] by
-//             shrinking implicit-pivot elimination (solve_step.cuh) and
-//             store C_l, y_l;
-//   backward: x_{L-1} = y_{L-1}; x_l = y_l - C_l (ub_l x_{l+1}), ub_l
-//             rebuilt from layer l + 1.
+// Replaces the TPU kernel sbdart_tpu/pallas/blocktri.py:
+// _rt_fwd_chunk_kernel (the streamed variant of block_thomas_rt).  The
+// blocks are assembled on the fly as in blocktri_rt.cu (B5); what differs
+// is the factor kept per layer.  The upper block's only nonzero rows are
+// its bottom N, upper_l = [[0], [ub_l]] with ub_l = -[gp_{l+1}, gm_{l+1}
+// e_{l+1}], so the Thomas factor W_l = dt_l^-1 upper_l = C_l ub_l with
+// C_l = dt_l^-1[:, N:] (2N x N):
+//   dt_l = diag_l - [(lt_l C_{l-1}) ub_{l-1}; 0], where ub_{l-1} is built
+//   from layer l's own gp/gm/ee; solve dt_l [C_l | y_l] = [I_bottom | r_l
+//   - [lt_l y_{l-1}; 0]] by shrinking implicit-pivot elimination
+//   (solve_step.cuh) and store C_l, y_l.
 // The TPU splits the layers into VMEM-sized chunks and carries C, y and the
 // previous layer's gp/gm/ee between grid steps; here one thread carries
 // its column through every layer in registers and local memory, which is
 // the same arithmetic in the same order (the chunking moved only the
 // carry).  The TPU's zero halo layer and identity padding layers change no
-// real layer's value and are not needed: the last layer's ub is zero, so
-// its x is its y.
+// real layer's value and are not needed.
 //
 // What bounds it on Hopper: as B5, the layer recursion is sequential and
-// the parallelism is the column count; per layer the forward solve is
-// 16 x 25 at m = 16 (B5's is 16 x 33), the history is m N + m floats a
-// layer (B5's m^2 + m): 65 x 144 x 6144 floats = 230 MB at the nstr=16
-// bench shape, against B5's 435 MB, at the cost of rebuilding ub_l in the
-// backward sweep.  Both history tensors are column-minor
-// ([L, m N, B], [L, m, B]), so a warp's accesses are 32 consecutive floats.
+// the parallelism is the column count; per layer the solve is 2N x 3N+1
+// at N <= 3.  Both history tensors are column-minor ([L, m N, B],
+// [L, m, B]), so a warp's accesses are 32 consecutive floats.
 //
 // Numerics: every sum over a block index runs in order, as in the plain
-// torch versions (sbdart_tpu_torch/kernels/blocktri_rt_streamed.py), term
+// torch version (sbdart_tpu_torch/kernels/blocktri_rt_streamed.py), term
 // by term; built with IEEE division and --fmad=false.
 
 #pragma once
@@ -169,59 +161,6 @@ __global__ void blocktri_rt_fwd_kernel(
   }
 }
 
-template <int N>
-__global__ void blocktri_rt_bwd_kernel(
-    const float* __restrict__ gp,     // [L, N, N, B]
-    const float* __restrict__ gm,     // [L, N, N, B]
-    const float* __restrict__ ee,     // [L, N, B]
-    const float* __restrict__ cs,     // [L, 2N, N, B]
-    const float* __restrict__ ys,     // [L, 2N, B]
-    float* __restrict__ xs,           // [L, 2N, B]
-    int nlyr, int ncol) {
-  constexpr int M = 2 * N;
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= ncol) return;
-  const long long B = ncol;
-  float x_next[M];
-#pragma unroll
-  for (int i = 0; i < M; ++i) {
-    x_next[i] = ys[((long long)(nlyr - 1) * M + i) * B + col];
-    xs[((long long)(nlyr - 1) * M + i) * B + col] = x_next[i];
-  }
-  for (int l = nlyr - 2; l >= 0; --l) {
-    const long long lp1 = l + 1;
-    // z = ub_l x_{l+1}, ub_l = -[gp_{l+1}, gm_{l+1} e_{l+1}]
-    float z[N];
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      float s = -gp[((lp1 * N + i) * N) * B + col] * x_next[0];
-#pragma unroll
-      for (int k = 1; k < M; ++k) {
-        const float u =
-            k < N ? -gp[((lp1 * N + i) * N + k) * B + col]
-                  : -(gm[((lp1 * N + i) * N + k - N) * B + col] *
-                      ee[(lp1 * N + k - N) * B + col]);
-        s = s + u * x_next[k];
-      }
-      z[i] = s;
-    }
-    float x_l[M];
-#pragma unroll
-    for (int r = 0; r < M; ++r) {
-      const long long base = ((long long)l * M + r) * N;
-      float s = cs[base * B + col] * z[0];
-#pragma unroll
-      for (int j = 1; j < N; ++j) s = s + cs[(base + j) * B + col] * z[j];
-      x_l[r] = ys[((long long)l * M + r) * B + col] - s;
-    }
-#pragma unroll
-    for (int r = 0; r < M; ++r) {
-      x_next[r] = x_l[r];
-      xs[((long long)l * M + r) * B + col] = x_l[r];
-    }
-  }
-}
-
 constexpr int kThreads = 64;
 
 template <int N>
@@ -231,16 +170,6 @@ cudaError_t launch_fwd(const float* gp, const float* gm, const float* ee,
   const int blocks = (ncol + kThreads - 1) / kThreads;
   blocktri_rt_fwd_kernel<N><<<blocks, kThreads, 0, stream>>>(
       gp, gm, ee, refl, rhs, cs, ys, nlyr, ncol);
-  return cudaGetLastError();
-}
-
-template <int N>
-cudaError_t launch_bwd(const float* gp, const float* gm, const float* ee,
-                       const float* cs, const float* ys, float* xs, int nlyr,
-                       int ncol, cudaStream_t stream) {
-  const int blocks = (ncol + kThreads - 1) / kThreads;
-  blocktri_rt_bwd_kernel<N><<<blocks, kThreads, 0, stream>>>(
-      gp, gm, ee, cs, ys, xs, nlyr, ncol);
   return cudaGetLastError();
 }
 

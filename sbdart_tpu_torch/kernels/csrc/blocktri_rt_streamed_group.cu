@@ -1,14 +1,13 @@
-// B6 on the elimination core (group_solve.cuh): the forward elimination of
-// the rank-N factor history and the backward substitution, a group of
-// lanes per column, N a run-time argument.
+// B6 forward on the elimination core (group_solve.cuh): the forward
+// elimination of the rank-N factor history, a group of lanes per column,
+// N a run-time argument (B6 backward is blocktri_rt_bwd.cu).
 //
-// Replaces the TPU kernels sbdart_tpu/pallas/blocktri.py:
-// _rt_fwd_chunk_kernel and _rt_bwd_chunk_kernel; the arithmetic is that of
-// blocktri_rt_streamed.cuh (the one-thread kernels) and of the plain torch
-// versions in kernels/blocktri_rt_streamed.py, per layer l:
-//   forward   dt_l = diag_l - [(lt_l C_{l-1}) ub_{l-1}; 0], solve
-//             dt_l [C_l | y_l] = [I_bottom | r_l - [lt_l y_{l-1}; 0]]
-//   backward  x_{L-1} = y_{L-1}; x_l = y_l - C_l (ub_l x_{l+1})
+// Replaces the TPU kernel sbdart_tpu/pallas/blocktri.py:
+// _rt_fwd_chunk_kernel; the arithmetic is that of
+// blocktri_rt_streamed.cuh (the one-thread kernel) and of the plain torch
+// version in kernels/blocktri_rt_streamed.py, per layer l:
+//   dt_l = diag_l - [(lt_l C_{l-1}) ub_{l-1}; 0], solve
+//   dt_l [C_l | y_l] = [I_bottom | r_l - [lt_l y_{l-1}; 0]]
 // with ub_{l-1} = -[gp_l, gm_l e_l] and lt_l = -[gm_{l-1} e_{l-1}, gp_{l-1}],
 // which is ub_{l-2} with its two halves swapped: each layer forms its ub
 // once in shared memory and the next layer reads it as its lt.
@@ -22,14 +21,14 @@
 // shared memory, one row a lane, so a step is a shuffle reduction for
 // the pivot and one row update per lane; at N = 8, 6144 columns are 3072
 // warps.  Past the shared memory of one column (N = 52 on an H100) the
-// forward kernel's far instance keeps only the system there
-// (group_solve.cuh, "Placement").  A block holds 8 columns and moves each layer's operands into
-// shared memory (cp.async) and its results out together, a warp's
+// kernel's far instance keeps only the system there (group_solve.cuh,
+// "Placement").  A block holds 8 columns and moves each layer's operands
+// into shared memory (cp.async) and its results out together, a warp's
 // accesses whole 32-byte sectors of the column-minor planes.  Bytes:
 // (2N^2 + 3N) floats read and (2N^2 + 2N) written a layer and column.
 //
 // Per layer, each element is computed by one lane, every sum over a block
-// index in order as in the plain versions; built with IEEE division and
+// index in order as in the plain version; built with IEEE division and
 // --fmad=false.
 
 #include "group_solve.cuh"
@@ -74,15 +73,6 @@ struct FwdLayout {
     near = g.near;
     far = g.far;
   }
-};
-
-// The backward kernel's: x_{l+1}, x_l (2N each), z (N), and the layer's
-// C_l (2N x N), y_l (2N), gp, gm (N x N) and ee (N) of layer l + 1.
-struct BwdLayout {
-  int m, x0, x1, z, in, floats;
-  __host__ __device__ explicit BwdLayout(int n)
-      : m(2 * n), x0(0), x1(2 * n), z(4 * n), in(5 * n),
-        floats(5 * n + 4 * n * n + 3 * n) {}
 };
 
 template <bool kFar>
@@ -214,78 +204,13 @@ __global__ void __launch_bounds__(256, 3) blocktri_rt_fwd_group_kernel(
   }
 }
 
-__global__ void __launch_bounds__(256, 3) blocktri_rt_bwd_group_kernel(
-    const float* __restrict__ gp,     // [L, N, N, B]
-    const float* __restrict__ gm,     // [L, N, N, B]
-    const float* __restrict__ ee,     // [L, N, B]
-    const float* __restrict__ cs,     // [L, 2N, N, B]
-    const float* __restrict__ ys,     // [L, 2N, B]
-    float* __restrict__ xs,           // [L, 2N, B]
-    int nlyr, int n, int ncol, int stride, float*, int) {
-  extern __shared__ __align__(16) float smem[];
-  const BwdLayout lay(n);
-  const int m = lay.m;
-  const int g = group_size(m);
-  const int lane = threadIdx.x & (g - 1);
-  const Block bk(g, ncol, stride);
-  float* base = smem + (threadIdx.x / g) * stride;
-  float* z = base + lay.z;
-  const float* csl = base + lay.in;
-  const float* yl = csl + m * n;
-  const float* gpn = yl + m;
-  const float* gmn = gpn + n * n;
-  const float* een = gmn + n * n;
-  int cur = lay.x0, nxt = lay.x1;
-
-  bk.stage(smem, cur, ys, (long long)(nlyr - 1) * m, m);
-  stage_wait();
-  bk.store(xs, (long long)(nlyr - 1) * m, m, 1, smem, cur, 1);
-  for (int l = nlyr - 2; l >= 0; --l) {
-    bk.stage(smem, lay.in, cs, (long long)l * m * n, m * n);
-    bk.stage(smem, lay.in + m * n, ys, (long long)l * m, m);
-    bk.stage(smem, lay.in + m * n + m, gp, (long long)(l + 1) * n * n, n * n);
-    bk.stage(smem, lay.in + m * n + m + n * n, gm, (long long)(l + 1) * n * n,
-             n * n);
-    bk.stage(smem, lay.in + m * n + m + 2 * n * n, ee, (long long)(l + 1) * n,
-             n);
-    stage_wait();
-    const float* xc = base + cur;
-    float* xn = base + nxt;
-    for (int i = lane; i < n; i += g) {   // z = ub_l x_{l+1}
-      float s = -gpn[i * n] * xc[0];
-      for (int k = 1; k < m; ++k) {
-        const float u = k < n ? -gpn[i * n + k]
-                              : -(gmn[i * n + k - n] * een[k - n]);
-        s = s + u * xc[k];
-      }
-      z[i] = s;
-    }
-    __syncwarp();
-    for (int r = lane; r < m; r += g) {
-      const float* cr = csl + r * n;
-      float s = cr[0] * z[0];
-      for (int j = 1; j < n; ++j) s = s + cr[j] * z[j];
-      xn[r] = yl[r] - s;
-    }
-    __syncthreads();
-    bk.store(xs, (long long)l * m, m, 1, smem, nxt, 1);
-    const int t = cur;
-    cur = nxt;
-    nxt = t;
-  }
-}
-
 }  // namespace
 
-// Shared-memory bytes one column of a group kernel takes: kind 0 B6
-// forward with every region there, 2 B6 forward's far instance (the
-// system alone), 1 B6 backward (the B5 and B10 kinds are in their own
-// sources).
+// Shared-memory bytes one column of the kernel takes: kind 0 with every
+// region there, 2 the far instance's (the system alone).
 extern "C" int sbdart_blocktri_rt_streamed_group_bytes(int kind, int n) {
-  const int floats = kind == 1 ? BwdLayout(n).floats
-                               : FwdLayout(n, kind == 2).near;
   return static_cast<int>(sizeof(float)) *
-         column_stride(floats, group_size(2 * n));
+         column_stride(FwdLayout(n, kind == 2).near, group_size(2 * n));
 }
 
 // Floats of device scratch B6 forward's launch over ncol columns needs (0
@@ -309,19 +234,4 @@ extern "C" int sbdart_blocktri_rt_fwd_group(
       group_size(2 * n), FwdLayout(n, false).near, FwdLayout(n, true).near,
       FwdLayout(n, true).far, scratch, ncol, stream, gp, gm, ee, refl, rhs, cs,
       ys, nlyr, n, ncol));
-}
-
-// The backward kernel's column always fits where the forward's system does
-// (4N^2 + 8N floats against ~6N^2): one instance, run as both.
-extern "C" int sbdart_blocktri_rt_bwd_group(
-    const float* gp, const float* gm, const float* ee, const float* cs,
-    const float* ys, float* xs, int nlyr, int n, int ncol,
-    cudaStream_t stream) {
-  if (nlyr <= 0 || ncol <= 0) return 0;
-  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int floats = BwdLayout(n).floats;
-  return static_cast<int>(sbdart_group::launch(
-      blocktri_rt_bwd_group_kernel, blocktri_rt_bwd_group_kernel,
-      group_size(2 * n), floats, floats, 0, nullptr, ncol, stream, gp, gm, ee, cs, ys, xs, nlyr,
-      n, ncol));
 }

@@ -17,6 +17,8 @@ solve on a column whose first pivot needs a row exchange.
 """
 
 import functools
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -36,11 +38,14 @@ from sbdart_tpu_torch.kernels.blocktri_rt import (
     solve_step,
 )
 from sbdart_tpu_torch.kernels.blocktri_rt_streamed import (
+    BWD_ONE_THREAD_N,
     block_thomas_rt_bwd,
+    block_thomas_rt_bwd_group,
     block_thomas_rt_fwd,
     block_thomas_rt_fwd_plain,
     block_thomas_rt_streamed,
     block_thomas_rt_streamed_plain,
+    bwd_entry,
     reference_route,
     reference_streams,
     solve_bvp,
@@ -267,7 +272,7 @@ def test_solve_bvp_runs_the_routed_kernel(n, nlyr):
 def test_blocktri_rt_streamed_wrappers_take_plain_versions_on_cpu():
     prob = [torch.from_numpy(x.astype(np.float32))
             for x in rt_problem(3, 6, 9, coupling=0.4)]
-    before = (block_thomas_rt_fwd.launches, block_thomas_rt_bwd.launches)
+    before = (block_thomas_rt_fwd.launches, block_thomas_rt_bwd_group.launches)
     cs, ys = block_thomas_rt_fwd(*prob)
     cs_p, ys_p = block_thomas_rt_fwd_plain(*prob)
     assert cs.shape == (3, 12, 6, 9) and ys.shape == (3, 12, 9)
@@ -275,4 +280,36 @@ def test_blocktri_rt_streamed_wrappers_take_plain_versions_on_cpu():
     assert torch.equal(block_thomas_rt_bwd(*prob[:3], cs, ys),
                        block_thomas_rt_streamed_plain(*prob))
     assert (block_thomas_rt_fwd.launches,
-            block_thomas_rt_bwd.launches) == before
+            block_thomas_rt_bwd_group.launches) == before
+
+
+@pytest.mark.parametrize("n", range(1, 25))
+def test_blocktri_rt_bwd_entry_by_n(n):
+    """B6 backward's choice of kernel by N: the lane group kernel at every
+    N outside BWD_ONE_THREAD_N, and a refusal inside it, where no
+    one-thread kernel is built to run."""
+    if n in BWD_ONE_THREAD_N:
+        with pytest.raises(ValueError, match="no one-thread kernel"):
+            bwd_entry(n)
+    else:
+        assert bwd_entry(n) == "sbdart_blocktri_rt_bwd_group"
+
+
+def test_blocktri_rt_bwd_one_thread_instances_are_the_routed_n():
+    """The CUDA sources hold a one-thread backward kernel (its kernel or
+    its C entry `sbdart_blocktri_rt_bwd`) exactly when BWD_ONE_THREAD_N
+    routes an N to one (at none, as the set is empty), and the lane group
+    kernel has an instance at every N to 16, N a run-time argument past
+    it: no N routed to a kernel is missing, none is dead."""
+    csrc = Path(block_thomas_rt_bwd.__code__.co_filename).parent / "csrc"
+    one_thread = re.compile(r"\bblocktri_rt_bwd_kernel\b|"
+                            r"\bsbdart_blocktri_rt_bwd\s*\(")
+    holders = {p.name for p in csrc.iterdir()
+               if p.suffix in (".cu", ".cuh")
+               and one_thread.search(p.read_text())}
+    assert bool(holders) == bool(BWD_ONE_THREAD_N), holders
+    src = (csrc / "blocktri_rt_bwd.cu").read_text()
+    group = {int(x) for x in re.findall(
+        r"^\s*SBDART_BWD_GROUP_CASE\((\d+)\)", src, re.M)}
+    assert group == set(range(1, 17))
+    assert "launch<0>(" in src

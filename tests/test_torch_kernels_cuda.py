@@ -70,15 +70,23 @@ def test_eig_n2_kernel_matches_plain(cuda_device, ncol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("ncol", [49152, 130])
+@pytest.mark.parametrize("ncol", [49152, 49156, 130])
 def test_blocktri_n2_kernel_matches_plain(cuda_device, ncol):
+    """B2 at 33 layers, equal to its plain version element for element,
+    with a NaN in one column's right-hand side: whole blocks, a last block
+    of 4 columns (16-byte copies with the tail guards), and 4-byte copies
+    (130 columns)."""
     from sbdart_tpu_torch.kernels.blocktri_n2 import (
         block_thomas_rt_n2, block_thomas_rt_n2_plain)
 
     _, _, _, ops = _problem(ncol, cuda_device)
+    ops = tuple(ops[:4]) + (_nan_column(ops[4], ncol // 2),)
+    before = block_thomas_rt_n2.launches
     got = block_thomas_rt_n2(*ops)
     torch.cuda.synchronize()
-    _assert_close(got, block_thomas_rt_n2_plain(*ops), "xs")
+    assert block_thomas_rt_n2.launches == before + 1
+    _assert_equal(got, block_thomas_rt_n2_plain(*ops), "xs")
+    assert bool(torch.isnan(got).any())
 
 
 @pytest.mark.cuda
@@ -175,25 +183,30 @@ def test_blocktri_rt_routes_each_n(cuda_device, n, ncol):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("nstr", [8, 12, 16])
-@pytest.mark.parametrize("ncol", [6144, 130])
+@pytest.mark.parametrize("ncol", [6144, 6148, 130])
 def test_blocktri_rt_streamed_kernels_match_plain(cuda_device, nstr, ncol):
     """B6: the forward kernel against its plain version, the backward
-    kernel against its plain version on the plain forward's history."""
+    kernel against its plain version on the plain forward's history, each
+    through its route, equal element for element with a NaN in one
+    column's right-hand side; 6148 columns end the backward kernel's last
+    block at 4 columns (16-byte copies with the tail guards)."""
     from sbdart_tpu_torch.kernels.blocktri_rt_streamed import (
         block_thomas_rt_bwd, block_thomas_rt_bwd_plain, block_thomas_rt_fwd,
         block_thomas_rt_fwd_plain)
 
     _, ops = _general(ncol, nstr, cuda_device, nlyr=65)
-    before = (_fwd_launches(), block_thomas_rt_bwd.launches)
+    ops = tuple(ops[:4]) + (_nan_column(ops[4], ncol // 2),)
+    before = (_fwd_launches(), _bwd_launches())
     cs, ys = block_thomas_rt_fwd(*ops)
     cs_p, ys_p = block_thomas_rt_fwd_plain(*ops)
     xs = block_thomas_rt_bwd(*ops[:3], cs_p, ys_p)
     torch.cuda.synchronize()
-    assert (_fwd_launches(),
-            block_thomas_rt_bwd.launches) == (before[0] + 1, before[1] + 1)
-    _assert_close(cs, cs_p, "cs")
-    _assert_close(ys, ys_p, "ys")
-    _assert_close(xs, block_thomas_rt_bwd_plain(*ops[:3], cs_p, ys_p), "xs")
+    assert (_fwd_launches(), _bwd_launches()) == (before[0] + 1,
+                                                  before[1] + 1)
+    _assert_equal(cs, cs_p, "cs")
+    _assert_equal(ys, ys_p, "ys")
+    _assert_equal(xs, block_thomas_rt_bwd_plain(*ops[:3], cs_p, ys_p), "xs")
+    assert bool(torch.isnan(xs).any())
 
 
 def _fwd_launches():
@@ -203,6 +216,72 @@ def _fwd_launches():
         block_thomas_rt_fwd, block_thomas_rt_fwd_group)
 
     return block_thomas_rt_fwd.launches + block_thomas_rt_fwd_group.launches
+
+
+def _bwd_launches():
+    """Launches of B6 backward's kernel (the lane group kernel at every N:
+    blocktri_rt_streamed.BWD_ONE_THREAD_N is empty)."""
+    from sbdart_tpu_torch.kernels.blocktri_rt_streamed import (
+        block_thomas_rt_bwd_group)
+
+    return block_thomas_rt_bwd_group.launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 16])
+@pytest.mark.parametrize("ncol", [6144, 130])
+def test_blocktri_rt_bwd_routes_each_n(cuda_device, n, ncol):
+    """B6 backward through block_thomas_rt_bwd's route at N = 1 to 10 and
+    16 (33 layers, on the plain forward's history of the NaN column's
+    operands), equal to its plain version; the launch counter shows the
+    lane group kernel ran at each N outside BWD_ONE_THREAD_N (every N:
+    no one-thread backward kernel is built)."""
+    from sbdart_tpu_torch.kernels.blocktri_rt_streamed import (
+        BWD_ONE_THREAD_N, block_thomas_rt_bwd, block_thomas_rt_bwd_group,
+        block_thomas_rt_bwd_plain, block_thomas_rt_fwd_plain, bwd_entry)
+
+    ops = _bvp_operands(n, 33, ncol, cuda_device)
+    hist = block_thomas_rt_fwd_plain(*ops)
+    before = block_thomas_rt_bwd_group.launches
+    got = block_thomas_rt_bwd(*ops[:3], *hist)
+    torch.cuda.synchronize()
+    assert n not in BWD_ONE_THREAD_N
+    assert bwd_entry(n) == "sbdart_blocktri_rt_bwd_group"
+    assert block_thomas_rt_bwd_group.launches == before + 1
+    _assert_equal(got, block_thomas_rt_bwd_plain(*ops[:3], *hist), "xs")
+    assert bool(torch.isnan(got).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,ncol", [(17, 2112), (64, 264), (64, 12), (80, 3),
+                                    (100, 3), (119, 3)])
+def test_blocktri_rt_bwd_past_n16_matches_plain(cuda_device, n, ncol):
+    """B6 backward's run-time-N instance on an H100's 132 SMs where its
+    ring holds 2 slots of 16 columns (N = 17 x 2112 columns), 1 slot of 2
+    columns (N = 64 x 264), 3 slots of one column (N = 64 x 12, G10's
+    deck), 2 slots of one column (N = 80) and 1 (N = 100, and 119, the
+    last N whose slot fits the card's shared memory), on 3 layers of
+    random history with a NaN in one column, equal to its plain version;
+    N = 120 is refused, naming the limit."""
+    from sbdart_tpu_torch.kernels.blocktri_rt_streamed import (
+        block_thomas_rt_bwd_group, block_thomas_rt_bwd_plain)
+
+    gp, gm, ee, _, _ = _bvp_operands(n, 3, ncol, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    cs = 0.1 * torch.randn((3, 2 * n, n, ncol), generator=gen,
+                           device=cuda_device)
+    ys = torch.randn((3, 2 * n, ncol), generator=gen, device=cuda_device)
+    ys[1, 0, 1] = float("nan")
+    got = block_thomas_rt_bwd_group(gp, gm, ee, cs, ys)
+    torch.cuda.synchronize()
+    _assert_equal(got, block_thomas_rt_bwd_plain(gp, gm, ee, cs, ys), "xs")
+    assert bool(torch.isnan(got).any())
+    if n == 119:
+        ops = _bvp_operands(120, 2, 1, cuda_device)
+        hist = (torch.zeros((2, 240, 120, 1), device=cuda_device),
+                torch.zeros((2, 240, 1), device=cuda_device))
+        with pytest.raises(ValueError, match="shared memory.*N up to 119"):
+            block_thomas_rt_bwd_group(*ops[:3], *hist)
 
 
 def _radiance(nstr, nlyr, nbc, device):
@@ -225,13 +304,14 @@ def test_bvp_kernels_at_n2_match_plain(cuda_device, ncol):
 
     prob = chip_smoke.flux_problem(ncol, 1, 65, cuda_device)
     *_, ops = chip_smoke.kernel_operands(prob)
-    before = _rt_launches()
+    before = (_rt_launches(), _bwd_launches())
     got = block_thomas_rt(*ops)
     cs, ys = block_thomas_rt_fwd(*ops)
     cs_p, ys_p = block_thomas_rt_fwd_plain(*ops)
     xs = block_thomas_rt_bwd(*ops[:3], cs_p, ys_p)
     torch.cuda.synchronize()
-    assert _rt_launches() == before + 1
+    assert (_rt_launches(), _bwd_launches()) == (before[0] + 1,
+                                                 before[1] + 1)
     _assert_close(got, block_thomas_rt_plain(*ops), "xs (B5)")
     _assert_close(cs, cs_p, "cs")
     _assert_close(ys, ys_p, "ys")
@@ -525,14 +605,14 @@ def test_bvp_kernels_at_odd_n_match_plain(cuda_device, nstr, cols):
 
     bvp, _ = _generic(nstr, 640, 9, cuda_device, onlyfl=True)["solve_bvp"]
     ops = tuple(x[..., :cols].contiguous() for x in bvp)
-    before = (_rt_launches(), _fwd_launches(), block_thomas_rt_bwd.launches)
+    before = (_rt_launches(), _fwd_launches(), _bwd_launches())
     got = block_thomas_rt(*ops)
     cs, ys = block_thomas_rt_fwd(*ops)
     cs_p, ys_p = block_thomas_rt_fwd_plain(*ops)
     xs = block_thomas_rt_bwd(*ops[:3], cs_p, ys_p)
     torch.cuda.synchronize()
     assert (_rt_launches(), _fwd_launches(),
-            block_thomas_rt_bwd.launches) == tuple(b + 1 for b in before)
+            _bwd_launches()) == tuple(b + 1 for b in before)
     _assert_close(got, block_thomas_rt_plain(*ops), "xs (B5)")
     _assert_close(cs, cs_p, "cs")
     _assert_close(ys, ys_p, "ys")
