@@ -9,7 +9,10 @@ or, to compare two checkouts on one card (run them in turns, all on the
 same card: parent, change, change, parent), time the BVP and eigen
 kernels of the package in another checkout at this script's shapes:
 
-    python3 chip_smoke.py --ab PATH/TO/CHECKOUT
+    python3 chip_smoke.py --ab PATH/TO/CHECKOUT [radsrc,solves,kernels]
+
+(the optional list picks --ab's groups: B7's rows, the radiance solves'
+breakdowns, the other kernels' rows; all three by default)
 
 Phases, one JSON line each; the first failure exits non-zero:
 
@@ -171,6 +174,12 @@ INPUT_C4 = """ &INPUT
    nzen=6, uzen=0,30,60,75,120,150, nphi=3, phi=0,90,180, iout=20
  /
 """
+# 20 user cosines (SBDART's uzen limit, the kernel's MAX_ANGLES), both signs
+UMU_20 = tuple(round(s * (0.05 + 0.1 * k), 2) for s in (1, -1)
+               for k in range(10))
+# the device operations torch's copies launch (.contiguous(), a reshape
+# that cannot view, Tensor.copy_)
+COPY_OPS = r"direct_copy_kernel|Memcpy DtoD"
 # the card's peaks (H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
@@ -266,13 +275,16 @@ def device_ms(fn, reps: int, match: str | None = None) -> float | None:
 
 def device_breakdown(fn, reps: int) -> dict:
     """Per call of fn(): device ms in all, in each of the port's kernels
-    (by its __global__ name) and in the rest (the torch glue), and the
-    number of device operations, from torch.profiler (None where it
-    reported no device work)."""
+    (by its __global__ name) and in the rest (the torch glue), the number
+    of device operations, and the copies among them (COPY_OPS: their
+    count and device ms), from torch.profiler (None where it reported no
+    device work)."""
     ev = device_events(fn, reps)
     if not ev:
         return {"device_busy_ms": None, "kernel_device_ms": None,
-                "glue_device_ms": None, "device_ops_per_solve": None}
+                "glue_device_ms": None, "device_ops_per_solve": None,
+                "copy_ops_per_solve": None, "copy_device_ms": None}
+    copies = [t for name, t in ev if re.search(COPY_OPS, name)]
     busy = sum(t for _, t in ev) / reps / 1e3
     per = {}
     for k, spec in KERNELS.items():
@@ -281,7 +293,9 @@ def device_breakdown(fn, reps: int) -> dict:
             per[k] = sum(us) / reps / 1e3
     return {"device_busy_ms": busy, "kernel_device_ms": per,
             "glue_device_ms": busy - sum(per.values()),
-            "device_ops_per_solve": len(ev) / reps}
+            "device_ops_per_solve": len(ev) / reps,
+            "copy_ops_per_solve": len(copies) / reps,
+            "copy_device_ms": sum(copies) / reps / 1e3}
 
 
 def flux_problem(nbc, nk, nlyr, device, seed=0, nmom=5, planck=False):
@@ -438,6 +452,28 @@ def radiance_kernel_operands(args, kw):
         for n, fn in saved.items():
             setattr(radlane, n, fn)
     return seen
+
+
+def radsrc_operands(device, nstr, nlyr, nbc, umu=UMU_VIEW, **cell):
+    """B7's operands as the radiance path hands them to rad_source_lane
+    (gp, gm, kk, zp and zm strided views of the eigen chain's flat
+    output), captured from one run of the plain path of radiance_problem's
+    cell at the user cosines `umu`: (operands, umu)."""
+    import numpy as np
+
+    args, kw = radiance_problem(nbc, nlyr, device, nstr=nstr, **cell)
+    kw["umu"] = np.array(umu)
+    *src, umu = radiance_kernel_operands(args, kw)["rad_source_lane_plain"][0]
+    return tuple(src), umu
+
+
+def radsrc_bound(src, umu):
+    """B7's bound on the path's operands (bound_of, with j [M, U, LB])."""
+    import torch
+
+    j = torch.empty((src[0].shape[0], len(umu), src[3].shape[-1]),
+                    device=src[3].device)
+    return bound_of("radsrc", src, (j,))
 
 
 def generic_problem(nbc, nk, nlyr, device, *, nstr, onlyfl, angles=False,
@@ -823,9 +859,11 @@ def phase_kernels_general(device, reps):
 def phase_kernels_radiance(device, reps):
     """The radiance path's kernels against their plain versions on the
     operands the path gives them: B7 at the nstr=16 bench shape (M = 16,
-    U = 5, LB = 65 x 256) and at LB = 130 (65 x 2); B4 on the flat lane
-    axis of that solve (16 x 65 x 256 lanes); B8 at the nstr=4 shape
-    (4 x 33 x 4096 lanes) and at its first 130 lanes."""
+    U = 5, LB = 65 x 256), at LB = 130 (65 x 2) and at the nstr=4 shape
+    (N = 2, 4 x 33 x 4096), on the path's own strided views of the eigen
+    output (timed at the bench shape); B4 on the flat lane axis of that
+    solve (16 x 65 x 256 lanes); B8 at the nstr=4 shape (4 x 33 x 4096
+    lanes) and at its first 130 lanes."""
     from sbdart_tpu_torch.kernels.eig_beam import (
         eig_beam_chain, eig_beam_chain_plain)
     from sbdart_tpu_torch.kernels.eig_n2 import (
@@ -842,19 +880,16 @@ def phase_kernels_radiance(device, reps):
         flat = tuple(x.reshape((1,) + x.shape).contiguous()
                      for x in (cppl, cpml, r1, r2)) + (mu0.contiguous(),)
         main = nbc != 2
-        calls = {}
-        if nstr == 16:
-            *src, umu = ops["rad_source_lane_plain"][0]
-            src = tuple(x.contiguous() for x in src)
-            calls["radsrc"] = (
-                ("j",), lambda: rad_source_lane(*src, umu),
-                lambda: rad_source_lane_plain(*src, umu), 3, src)
-            if main:
-                calls["eig_beam"] = (
-                    EIG_NAMES, lambda: eig_beam_chain(*flat, tab.mu, tab.w),
-                    lambda: eig_beam_chain_plain(*flat, tab.mu, tab.w), 3,
-                    flat)
-        else:
+        *src, umu = ops["rad_source_lane_plain"][0]
+        calls = {"radsrc": (
+            ("j",), lambda: rad_source_lane(*src, umu),
+            lambda: rad_source_lane_plain(*src, umu), 3, src)}
+        if nstr == 16 and main:
+            calls["eig_beam"] = (
+                EIG_NAMES, lambda: eig_beam_chain(*flat, tab.mu, tab.w),
+                lambda: eig_beam_chain_plain(*flat, tab.mu, tab.w), 3,
+                flat)
+        elif nstr == 4:
             for cols in (flat[0].shape[-1], 130):
                 sl = tuple(x[..., :cols].contiguous() for x in flat)
                 row = check_kernel(
@@ -872,14 +907,14 @@ def phase_kernels_radiance(device, reps):
         rows = []
         for kname, (names, kern, plain, plain_reps, args) in calls.items():
             row = check_kernel(kname, names, kern, plain, nbc, args)
-            if main:
+            timed = main and nstr == 16
+            if timed:
                 time_kernel(row, kern, plain, reps, plain_reps)
-            fold(summary, row, main=main and kname == "radsrc")
+            fold(summary, row, main=timed and kname == "radsrc")
             rows.append(row)
-        if rows:
-            emit({"phase": "kernel", "path": "radiance", "nstr": nstr,
-                  "layers": nlyr, "band_columns": nbc,
-                  "bar": KERNEL_BAR, "results": rows})
+        emit({"phase": "kernel", "path": "radiance", "nstr": nstr,
+              "layers": nlyr, "band_columns": nbc,
+              "bar": KERNEL_BAR, "results": rows})
     return summary
 
 
@@ -1594,7 +1629,9 @@ def phase_radiance(device, reps, *, nstr, nbc, nlyr, planck=False,
                None if busy_ms is None else max(0.0, 1.0 - busy_ms / k_ms)),
            "kernel_path_kernel_device_ms": dev["kernel_device_ms"],
            "kernel_path_glue_device_ms": dev["glue_device_ms"],
-           "kernel_path_device_ops": dev["device_ops_per_solve"]}
+           "kernel_path_device_ops": dev["device_ops_per_solve"],
+           "kernel_path_copy_ops": dev["copy_ops_per_solve"],
+           "kernel_path_copy_device_ms": dev["copy_device_ms"]}
     emit(rec)
     if worst > E2E_BAR:
         raise SmokeFailure(f"radiance nstr={nstr}: kernel vs plain path "
@@ -1892,6 +1929,47 @@ KERNELS = {   # name: (wrapper module, wrapper, source, the TPU kernel,
 }
 
 
+def ptxas_of(log, source):
+    """ptxas's report (registers, stack, spills) of one source's kernels,
+    from the build log (its nvcc command line, then its output)."""
+    lines, mine = [], False
+    for ln in log.read_text().splitlines():
+        if " -c -o " in ln:
+            mine = ln.endswith(source)
+        elif mine and ("registers" in ln or "spill" in ln
+                       or "Compiling entry" in ln):
+            lines.append(ln.strip())
+    return lines
+
+
+def sass_summary(lib, match):
+    """Static SASS of the kernels in the library `lib` whose (mangled)
+    names the regular expression `match` finds, from cuobjdump -sass:
+    {name: {"instructions": n, "ops": the twelve commonest opcodes with
+    their counts}}, or None without cuobjdump."""
+    exe = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                       "cuobjdump")
+    if not os.path.exists(exe):
+        return None
+    out = subprocess.run([exe, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300).stdout
+    found, cur = {}, None
+    for ln in out.splitlines():
+        head = re.match(r"\s*Function : (\S+)", ln)
+        if head:
+            cur = head.group(1) if re.search(match, head.group(1)) else None
+            if cur:
+                found[cur] = {}
+            continue
+        ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z]\w*)",
+                       ln)
+        if cur and ins:
+            found[cur][ins.group(1)] = found[cur].get(ins.group(1), 0) + 1
+    return {name: {"instructions": sum(ops.values()),
+                   "ops": dict(sorted(ops.items(), key=lambda kv: -kv[1])[:12])}
+            for name, ops in found.items()}
+
+
 @contextlib.contextmanager
 def rt_shape_tally():
     """Count B5's launches on the main path by shape: {(layers, N,
@@ -1943,7 +2021,7 @@ def main() -> int:
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln
              ] if log.exists() else []
     emit({"phase": "build", "seconds": build_s, "library": path.name,
-          "ptxas": ptxas})
+          "ptxas": ptxas, "sass": sass_summary(path, "radsrc")})
 
     t0 = time.perf_counter()
     summary = phase_kernels(device, reps=20)
@@ -2169,12 +2247,67 @@ def ab_cases(device):
         lambda ops=b2_ops: block_thomas_rt_n2(*ops))
 
 
-def ab_times(tree) -> int:
-    """The `--ab` mode: time the kernels of `ab_cases` from the
-    sbdart_tpu_torch package of the checkout at `tree` (built there), one
-    JSON line each (device ms per launch, a CUDA graph of 10 launches,
-    median of 5 replays).  Run on two checkouts in turns (parent, change,
-    change, parent) within one call to compare them on one card."""
+# B7's --ab shapes: (nstr, layers, band-columns, user cosines, the cell's
+# keywords): nstr16-rad-65L at 256 and 2048 columns, at U = 20 at 256, and
+# the B7 shapes of nstr4-rad-33L (N = 2) and nstr8-brdf-thermal-33L (N = 4)
+RADSRC_AB = [(16, NLYR16, NBC_RAD16, UMU_VIEW, {}),
+             (16, NLYR16, NBC16, UMU_VIEW, {}),
+             (16, NLYR16, NBC_RAD16, UMU_20, {}),
+             (4, NLYR, 4096, UMU_VIEW, {}),
+             (8, NLYR, 512, UMU_VIEW, dict(planck=True, brdf=True))]
+# the radiance cells that run B7, for --ab's solve lines
+RADIANCE_CELLS = {
+    "nstr16-rad-65L/256": dict(nbc=NBC_RAD16, nlyr=NLYR16, nstr=16),
+    "nstr16-rad-65L/2048": dict(nbc=NBC16, nlyr=NLYR16, nstr=16),
+    "nstr4-rad-33L": dict(nbc=4096, nlyr=NLYR, nstr=4),
+    "nstr8-brdf-thermal-33L": dict(nbc=512, nlyr=NLYR, nstr=8, planck=True,
+                                   brdf=True),
+}
+
+
+def ab_radsrc_cases(device):
+    """(kernel, N, shape, call, fields) for `ab_times`: B7 at RADSRC_AB's
+    shapes through rad_source_lane, on the path's own operands ("path":
+    gp, gm, kk, zp and zm strided views of the eigen output, as radlane
+    hands them; a wrapper that copies them pays for it here) and on
+    contiguous copies of them ("contiguous": the kernel alone), with the
+    bound of the function's bytes."""
+    from sbdart_tpu_torch.kernels.radsrc import rad_source_lane
+
+    for nstr, nlyr, nbc, umu, cell in RADSRC_AB:
+        src, umu = radsrc_operands(device, nstr, nlyr, nbc, umu, **cell)
+        fields = {"umu": len(umu), "layers": nlyr, "band_columns": nbc,
+                  **radsrc_bound(src, umu)}
+        dense = tuple(x.contiguous() for x in src)
+        for kind, ops in (("path", src), ("contiguous", dense)):
+            yield f"radsrc/{kind}", nstr // 2, ops[5].shape, (
+                lambda ops=ops, umu=umu: rad_source_lane(*ops, umu)), fields
+        del src, dense
+
+
+def ab_solves(device):
+    """(cell, solve) for `ab_times`: solve_rte through the kernels at each
+    of RADIANCE_CELLS."""
+    import torch
+
+    from sbdart_tpu_torch.solver.disort import solve_rte
+
+    for name, cell in RADIANCE_CELLS.items():
+        args, kw = radiance_problem(device=device, **cell)
+        yield name, (lambda args=args, kw=kw: solve_rte(
+            *args, eig_method="auto", dtype=torch.float32, **kw))
+
+
+def ab_times(tree, groups=("radsrc", "solves", "kernels")) -> int:
+    """The `--ab` mode: from the sbdart_tpu_torch package of the checkout
+    at `tree` (built there), time the kernels of `ab_radsrc_cases`
+    (group "radsrc": also the copies the wrapper call launches, from
+    torch.profiler) and of `ab_cases` (group "kernels"), one JSON line
+    each (device ms per launch, a CUDA graph of 10 launches, median of 5
+    replays), and break the radiance solves of `ab_solves` (group
+    "solves") into device busy ms, kernels, copies and operations.  Run
+    on two checkouts in turns (parent, change, change, parent) within one
+    call to compare them on one card."""
     import torch
 
     sys.path.insert(0, os.path.abspath(tree))
@@ -2186,24 +2319,45 @@ def ab_times(tree) -> int:
 
     from sbdart_tpu_torch.kernels import _build
 
-    _, build_s = _build.build()
+    path, build_s = _build.build()
+    log = path.parent / "build.log"
     emit({"phase": "ab", "tree": os.path.abspath(tree),
           "package": os.path.dirname(sbdart_tpu_torch.__file__),
-          "build_seconds": build_s, "device": torch.cuda.get_device_name(0)})
-    for kname, n, shape, call in ab_cases(device):
+          "build_seconds": build_s, "device": torch.cuda.get_device_name(0),
+          "ptxas_radsrc": ptxas_of(log, "radsrc.cu"),
+          "sass": sass_summary(path, "radsrc")})
+    cases = []
+    if "radsrc" in groups:
+        cases.append(ab_radsrc_cases(device))
+    if "kernels" in groups:
+        cases.append(ab_cases(device))
+    for kname, n, shape, call, *fields in (c for g in cases for c in g):
         call()
         torch.cuda.synchronize()
-        emit({"phase": "ab", "kernel": kname, "n": n,
-              "shape": list(shape), "ms": graph_ms(call, 10)})
+        row = {"phase": "ab", "kernel": kname, "n": n, "shape": list(shape),
+               "ms": graph_ms(call, 10), **(fields[0] if fields else {})}
+        if kname.startswith("radsrc"):
+            dev = device_breakdown(call, 5)
+            row.update(copy_ops=dev["copy_ops_per_solve"],
+                       copy_device_ms=dev["copy_device_ms"])
+        emit(row)
         del call
         torch.cuda.empty_cache()
+    if "solves" in groups:
+        for name, solve in ab_solves(device):
+            solve()
+            emit({"phase": "ab", "solve": name,
+                  **device_breakdown(solve, 3)})
+            del solve
+            torch.cuda.empty_cache()
     return 0
 
 
 if __name__ == "__main__":
     try:
-        if len(sys.argv) == 3 and sys.argv[1] == "--ab":
-            sys.exit(ab_times(sys.argv[2]))
+        if len(sys.argv) in (3, 4) and sys.argv[1] == "--ab":
+            sys.exit(ab_times(sys.argv[2], *(
+                (sys.argv[3].split(","),) if len(sys.argv) == 4 else ())))
         sys.exit(main())
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

@@ -122,7 +122,7 @@ def library() -> ctypes.CDLL:
     lib.sbdart_eig_n2_scatter.restype = _I
     lib.sbdart_eig_n2_planar.argtypes = [_P] * 10 + [_I, _I, _P, _P]
     lib.sbdart_eig_n2_planar.restype = _I
-    lib.sbdart_radsrc.argtypes = [_P] * 17 + [_I] * 4 + [_P, _P]
+    lib.sbdart_radsrc.argtypes = [_P] * 10 + [_I] * 4 + [_P, _P]
     lib.sbdart_radsrc.restype = _I
     lib.sbdart_eig_beam_group.argtypes = [_P] * 10 + [_I] * 3 + [_P, _P]
     lib.sbdart_eig_beam_group.restype = _I

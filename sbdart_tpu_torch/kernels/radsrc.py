@@ -1,5 +1,5 @@
 """B7: the radiance source projections and per-layer path integrals
-(USRINT), one lane per (azimuth mode, layer, column).
+(USRINT), one thread per (azimuth mode, lane), lane = (layer, column).
 
 Port of sbdart_tpu/pallas/radsrc.py:_kernel (reached via rad_source_lane
 from solver/radlane.py).  For every mode m, lane (layer, column) and user
@@ -19,7 +19,10 @@ and runs `rad_source_lane_plain` on CPU tensors.  Operands, as the
 reference's: t1/t2 [M, U, N, nstr], yu [M, U, nstr] (static tables), c
 [nstr, LB], y0d [M, nstr, LB], gp/gm [M, N, N, LB], kk/zp/zm/a/b [M, N, LB],
 dtau/ebtop/mu0/scale [1, LB]; umu [U] (host numbers, nonzero).  Returns
-j [M, U, LB].
+j [M, U, LB].  The kernel reads every per-lane operand in place through
+its strides (the radiance path hands gp, gm, kk, zp and zm as views of
+the eigen chain's flat output), so the wrapper takes any layout whose
+lane axis has stride 1 and refuses the others, on either device.
 
 Where the reference divides by a user cosine or its reciprocal (a Python
 number), both versions here multiply by the other one, each taken once on
@@ -123,10 +126,58 @@ def rad_source_lane_plain(t1, t2, yu, c, y0d, gp, gm, kk, zp, zm, a, b,
     return torch.stack(rows, dim=1)                     # [M, U, LB]
 
 
+LANE_OPERANDS = ("c", "y0d", "gp", "gm", "kk", "zp", "zm", "a", "b")
+
+
+def _check_operands(t1, t2, yu, lanes, rows, umu):
+    """The wrapper's shape and layout checks (on either device): the
+    reference's shapes, and a lane axis of stride 1 on every per-lane
+    operand, since the kernel reads them in place."""
+    nm, nu, n, nstr = t1.shape
+    lb = lanes[0].shape[-1]
+    if len(umu) != nu:
+        raise ValueError(f"rad_source_lane: {nu} angles in the tables, "
+                         f"umu has {len(umu)}")
+    want = {"t1": (nm, nu, n, nstr), "t2": (nm, nu, n, nstr),
+            "yu": (nm, nu, nstr), "c": (nstr, lb), "y0d": (nm, nstr, lb),
+            "gp": (nm, n, n, lb), "gm": (nm, n, n, lb), "kk": (nm, n, lb),
+            "zp": (nm, n, lb), "zm": (nm, n, lb), "a": (nm, n, lb),
+            "b": (nm, n, lb)}
+    for name, x in zip(want, (t1, t2, yu) + lanes):
+        if tuple(x.shape) != want[name]:
+            raise ValueError(f"rad_source_lane: {name} has shape "
+                             f"{tuple(x.shape)}, expected {want[name]}")
+    if any(x.numel() != lb for x in rows):
+        raise ValueError("rad_source_lane: dtau/ebtop/mu0/scale must be "
+                         "[1, LB]")
+    names = LANE_OPERANDS + ("dtau", "ebtop", "mu0", "scale")
+    for name, x in zip(names, lanes + rows):
+        if lb > 1 and x.stride(-1) != 1:
+            raise ValueError(
+                f"rad_source_lane: {name} has lane stride {x.stride(-1)}; "
+                "the kernel reads every per-lane operand in place, lane "
+                "stride 1 (make it contiguous first)")
+
+
+def _strides(x):
+    """(mode, row, column) strides of a lane operand, 0 where it has no
+    such axis (c: [nstr, LB]; y0d, kk..b: [M, R, LB]; gp, gm: [M, N, N,
+    LB])."""
+    st = ((0,) if x.dim() == 2 else ()) + x.stride()[:-1]
+    return st + (0,) * (3 - len(st))
+
+
 def rad_source_lane(t1, t2, yu, c, y0d, gp, gm, kk, zp, zm, a, b,
                     dtau, ebtop, mu0, scale, umu):
     """B7: the CUDA kernel on CUDA tensors (float32 only), the plain torch
-    version on CPU tensors.  Shapes as in the module doc."""
+    version on CPU tensors.  Shapes as in the module doc.  Every per-lane
+    operand is read in place (the radiance path's views of the eigen
+    output among them), so each must have lane stride 1, else ValueError;
+    the static tables are used as they are where contiguous and 16-byte
+    aligned, else copied (a few KB)."""
+    lanes = (c, y0d, gp, gm, kk, zp, zm, a, b)
+    rows = (dtau, ebtop, mu0, scale)
+    _check_operands(t1, t2, yu, lanes, rows, umu)
     if c.device.type == "cpu":
         return rad_source_lane_plain(t1, t2, yu, c, y0d, gp, gm, kk, zp, zm,
                                      a, b, dtau, ebtop, mu0, scale, umu)
@@ -137,25 +188,16 @@ def rad_source_lane(t1, t2, yu, c, y0d, gp, gm, kk, zp, zm, a, b,
     if n not in (2, 4, 6, 8) or nstr != 2 * n:
         raise ValueError(f"rad_source_lane: the kernel takes N = 2, 4, 6 or "
                          f"8 and nstr = 2N, got N={n}, nstr={nstr}")
-    if not 0 < nu <= MAX_ANGLES or len(umu) != nu:
+    if not 0 < nu <= MAX_ANGLES:
         raise ValueError(f"rad_source_lane: 1 to {MAX_ANGLES} user angles, "
-                         f"got {nu} (umu has {len(umu)})")
-    want = {"t1": (nm, nu, n, nstr), "t2": (nm, nu, n, nstr),
-            "yu": (nm, nu, nstr), "c": (nstr, lb), "y0d": (nm, nstr, lb),
-            "gp": (nm, n, n, lb), "gm": (nm, n, n, lb), "kk": (nm, n, lb),
-            "zp": (nm, n, lb), "zm": (nm, n, lb), "a": (nm, n, lb),
-            "b": (nm, n, lb)}
-    ins = (t1, t2, yu, c, y0d, gp, gm, kk, zp, zm, a, b)
-    for name, t in zip(want, ins):
-        if tuple(t.shape) != want[name]:
-            raise ValueError(f"rad_source_lane: {name} has shape "
-                             f"{tuple(t.shape)}, expected {want[name]}")
-    rows = (dtau, ebtop, mu0, scale)
-    if any(x.numel() != lb for x in rows):
-        raise ValueError("rad_source_lane: dtau/ebtop/mu0/scale must be "
-                         "[1, LB]")
-    ins = [t.contiguous() for t in ins + rows]
-    _build.require_cuda_f32("rad_source_lane", *ins)
+                         f"got {nu}")
+    tables = tuple(
+        x if x.is_contiguous() and x.data_ptr() % 16 == 0
+        else x.clone(memory_format=torch.contiguous_format)
+        for x in (t1, t2, yu))
+    _build.require_cuda_f32("rad_source_lane", *tables, *lanes, *rows)
+    ptrs = np.array([x.data_ptr() for x in lanes], np.uint64)
+    strides = np.array([_strides(x) for x in lanes], np.int64)
     angles = np.zeros((3, MAX_ANGLES), np.float32)
     angles[:, :nu] = _angle_consts(umu)
     j = torch.empty((nm, nu, lb), device=c.device, dtype=torch.float32)
@@ -163,8 +205,9 @@ def rad_source_lane(t1, t2, yu, c, y0d, gp, gm, kk, zp, zm, a, b,
     with torch.cuda.device(c.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.sbdart_radsrc(
-            *(t.data_ptr() for t in ins), j.data_ptr(), nm, nu, n, lb,
-            angles.ctypes.data, stream,
+            *(x.data_ptr() for x in tables), ptrs.ctypes.data,
+            strides.ctypes.data, *(x.data_ptr() for x in rows), j.data_ptr(),
+            nm, nu, n, lb, angles.ctypes.data, stream,
         )
     rad_source_lane.launches += 1
     _build.check(code, "rad_source_lane")

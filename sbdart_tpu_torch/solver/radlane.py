@@ -57,15 +57,15 @@ from sbdart_tpu_torch.solver.sources import _ylm_at, thermal_particular
 
 def user_tables(tab, umu):
     """B7's static tables for the user cosines `umu` (radlane.py:383-389),
-    as float64 numpy: t1/t2 [M, U, N, nstr] (Lam_l^m(u) w_i Lam_l^m(mu_i),
-    t2 with the parity) and yu [M, U, nstr] (Lam_l^m(u))."""
+    as contiguous float64 numpy: t1/t2 [M, U, N, nstr] (Lam_l^m(u) w_i
+    Lam_l^m(mu_i), t2 with the parity) and yu [M, U, nstr] (Lam_l^m(u))."""
     nm, nstr, _ = tab.ylm.shape
     ylm_u = legendre_assoc_norm(umu, nstr, nm)          # [m, l, U]
     wy = tab.ylm * np.asarray(tab.w)[None, None, :]     # [m, l, i]
     t1 = ylm_u[:, :, :, None] * wy[:, :, None, :]       # [m, l, U, i]
     t2 = t1 * tab.parity[:, :, None, None]
-    return (np.moveaxis(t1, 1, 3), np.moveaxis(t2, 1, 3),
-            np.moveaxis(ylm_u, 1, 2))
+    return tuple(np.ascontiguousarray(np.moveaxis(x, 1, k)) for x, k in
+                 ((t1, 3), (t2, 3), (ylm_u, 2)))
 
 
 def solve_rte_radiance_lane(dtauc, ssalb_in, pmom, *, nstr, fbeam, umu0,
@@ -310,7 +310,7 @@ def solve_rte_radiance_lane(dtauc, ssalb_in, pmom, *, nstr, fbeam, umu0,
     t1_np, t2_np, yu_np = user_tables(tab, umu)
 
     def mlead(x):
-        """[d.., M*L*Bc] -> [M, d.., LB] (a leading-axis move)."""
+        """[d.., M*L*Bc] -> [M, d.., LB], a view (B7 reads it in place)."""
         return torch.movedim(x.reshape(x.shape[:-1] + (nm, lb)), -2, 0)
 
     def by_mode(x):
@@ -324,7 +324,7 @@ def solve_rte_radiance_lane(dtauc, ssalb_in, pmom, *, nstr, fbeam, umu0,
 
     source = rad_source_lane if kernels else rad_source_lane_plain
     j_all = source(
-        t(t1_np), t(t2_np), t(yu_np), c3.reshape(nstr, lb),
+        t(t1_np), t(t2_np), t(yu_np), c_flat,
         y0d_l[:, :, None, :].expand(nm, nstr, nlyr, bc).reshape(nm, nstr, lb),
         mlead(gp_l), mlead(gm_l), mlead(kk_l), mlead(zp_l), mlead(zm_l),
         by_mode(a), by_mode(b), dtau_scan.reshape(1, lb),

@@ -15,7 +15,9 @@ columns; B4 on the flat radiance lane axis) and an unaligned 130.  The
 kernels are built with --fmad=false and follow their plain versions'
 operation order, so they agree to the last bit on the H100: B4, B9, B10
 and the group kernels are held to equality here, NaN positions included
-(a NaN injected in one column).
+(a NaN injected in one column); so is B7 on the radiance path's own
+strided views at N = 2, 4, 6 and 8, U = 1 and 20 and 130 lanes, with
+resonance lanes, a NaN lane and lanes that take its exact division.
 """
 
 import pytest
@@ -318,21 +320,63 @@ def test_bvp_kernels_at_n2_match_plain(cuda_device, ncol):
     _assert_close(xs, block_thomas_rt_bwd_plain(*ops[:3], cs_p, ys_p), "xs")
 
 
+def _radsrc_views(nstr, nlyr, nbc, device, umu=None):
+    """B7's operands as the radiance path hands them (gp, gm, kk, zp, zm
+    views of the eigen output), at the user cosines `umu` (chip_smoke's
+    five by default, or the name of one of its sets)."""
+    import chip_smoke
+
+    umu = getattr(chip_smoke, umu) if isinstance(umu, str) else umu
+    return chip_smoke.radsrc_operands(device, nstr, nlyr, nbc,
+                                      umu or chip_smoke.UMU_VIEW)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("nstr,nlyr,nbc", [(16, 65, 256), (16, 65, 2),
-                                           (12, 33, 64), (8, 33, 64),
-                                           (4, 33, 130)])
-def test_radsrc_kernel_matches_plain(cuda_device, nstr, nlyr, nbc):
+@pytest.mark.parametrize("nstr,nlyr,nbc,umu", [
+    (16, 65, 256, None), (16, 65, 2, None), (12, 33, 64, None),
+    (8, 33, 64, None), (4, 33, 130, None), (16, 33, 64, (0.7,)),
+    (16, 33, 64, "UMU_20")])
+def test_radsrc_kernel_matches_plain(cuda_device, nstr, nlyr, nbc, umu):
+    """B7 on the path's own strided views, bit for bit: N = 8, 6, 4, 2,
+    130 lanes (65 x 2), U = 1 and 20."""
     from sbdart_tpu_torch.kernels.radsrc import (
         rad_source_lane, rad_source_lane_plain)
 
-    *ops, umu = _radiance(nstr, nlyr, nbc, cuda_device)[
-        "rad_source_lane_plain"][0]
+    src, umu = _radsrc_views(nstr, nlyr, nbc, cuda_device, umu)
+    assert not src[5].is_contiguous() and src[5].stride(-1) == 1
     before = rad_source_lane.launches
-    got = rad_source_lane(*ops, umu)
+    got = rad_source_lane(*src, umu)
     torch.cuda.synchronize()
     assert rad_source_lane.launches == before + 1
-    _assert_close(got, rad_source_lane_plain(*ops, umu), "j")
+    _assert_equal(got, rad_source_lane_plain(*src, umu), "j")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nstr,nlyr,nbc", [(4, 33, 64), (16, 65, 256),
+                                           (16, 65, 2)])
+def test_radsrc_kernel_equals_plain_on_resonance_and_nan(cuda_device, nstr,
+                                                         nlyr, nbc):
+    """B7 with one lane of mode 1 put on the 'away' resonance at each user
+    cosine, kk = (1 +- 1e-6) / |u| (tests/test_torch_radsrc.py), a NaN in
+    another lane's G+, and two lanes whose path integrals leave the
+    kernel's branch-free division (dtau = 0: a zero numerator; dtau = 200:
+    both exponentials underflow), written through the path's views: bit
+    for bit, NaN positions included."""
+    from sbdart_tpu_torch.kernels.radsrc import (
+        rad_source_lane, rad_source_lane_plain)
+
+    src, umu = _radsrc_views(nstr, nlyr, nbc, cuda_device)
+    kk, gp, dtau = src[7], src[5], src[12]
+    for u_i, u in enumerate(umu):
+        kk[1, 0, u_i] = (1.0 + (1e-6 if u_i % 2 else -1e-6)) / abs(u)
+    gp[1, 0, 1, len(umu) + 1] = float("nan")
+    dtau[..., len(umu) + 2] = 0.0
+    dtau[..., len(umu) + 3] = 200.0
+    got = rad_source_lane(*src, umu)
+    want = rad_source_lane_plain(*src, umu)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(want).any())
+    _assert_equal(got, want, "j")
 
 
 @pytest.mark.cuda

@@ -20,6 +20,12 @@ So each mode's output plane j[m] of the port is held no further from a
 float64 evaluation of the same algorithm on the same operands than twice
 the reference's distance, plus 1e-6 of the plane's max (measured: ratio
 at most 2.17, excess at most 1.1e-8, at N = 8).
+
+The layout the radiance path hands B7 is held too: kk, gp, gm, zp and zm
+arrive as views of the eigen chain's flat output (no copy), on which the
+plain version computes what it computes on contiguous copies, and the
+wrapper refuses an operand whose lane axis has another stride than 1
+rather than copying it.
 """
 
 import jax.numpy as jnp
@@ -103,6 +109,66 @@ def test_radsrc_wrapper_takes_plain_version_on_cpu(monkeypatch):
     before = rad_source_lane.launches
     assert torch.equal(rad_source_lane(*ops, umu),
                        rad_source_lane_plain(*ops, umu))
+    assert rad_source_lane.launches == before
+
+
+def path_operands(nstr, nbc, monkeypatch):
+    """B7's float32 operands exactly as the radiance path hands them (no
+    copies), and the eigen chain's flat outputs they came from."""
+    seen = {}
+    eig = radlane.eig_beam_chain_lane
+
+    def eig_spy(*args, **kw):
+        seen["eig"] = eig(*args, **kw)
+        return seen["eig"]
+
+    def spy(*args):
+        seen["args"] = args
+        return rad_source_lane_plain(*args)
+
+    monkeypatch.setattr(radlane, "eig_beam_chain_lane", eig_spy)
+    monkeypatch.setattr(radlane, "rad_source_lane", spy)
+    args, kw = radiance_problem(nstr, 5, nbc, seed=1)
+    port(args, kw, torch.float32)
+    *ops, umu = seen["args"]
+    return ops, umu, seen["eig"]
+
+
+@pytest.mark.parametrize("nstr", [4, 8, 16])
+def test_radsrc_operands_arrive_as_views_of_the_eigen_output(monkeypatch,
+                                                             nstr):
+    """kk, gp, gm, zp and zm reach B7 as views of the eigen chain's flat
+    output (the same storage: no copy), lane stride 1; the tables
+    contiguous."""
+    ops, _, eig_out = path_operands(nstr, 3, monkeypatch)
+    for name, got, flat in zip(("kk", "gp", "gm", "zp", "zm"),
+                               (ops[7], ops[5], ops[6], ops[8], ops[9]),
+                               eig_out):
+        assert (got.untyped_storage().data_ptr()
+                == flat.untyped_storage().data_ptr()), name
+        assert got.stride(-1) == 1, name
+    assert not ops[5].is_contiguous()
+    assert all(t.is_contiguous() for t in ops[:3])
+
+
+@pytest.mark.parametrize("nstr", [4, 8, 16])
+def test_radsrc_plain_on_path_views_equals_contiguous(monkeypatch, nstr):
+    ops, umu, _ = path_operands(nstr, 3, monkeypatch)
+    assert torch.equal(rad_source_lane_plain(*ops, umu),
+                       rad_source_lane_plain(*(o.contiguous() for o in ops),
+                                             umu))
+
+
+@pytest.mark.parametrize("which", [5, 7, 11, 15])
+def test_radsrc_wrapper_refuses_non_unit_lane_stride(monkeypatch, which):
+    """An operand (gp, kk, b or scale) whose lane axis has stride 2 is
+    refused, not copied."""
+    ops, umu = captured_operands(8, 3, monkeypatch=monkeypatch)
+    wide = torch.zeros(ops[which].shape[:-1] + (2 * ops[which].shape[-1],))
+    ops[which] = wide[..., ::2].copy_(ops[which])
+    before = rad_source_lane.launches
+    with pytest.raises(ValueError, match="lane stride 2"):
+        rad_source_lane(*ops, umu)
     assert rad_source_lane.launches == before
 
 
