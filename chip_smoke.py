@@ -105,11 +105,33 @@ Phases, one JSON line each; the first failure exits non-zero:
               1e-2 of it, the mean TOA radiance above the same run's
               without aerosol), and config 4's namelist at nstr=10 and at
               nstr=32 (the generic path; B6's group kernels at N = 16)
-              under the same checks.
+              under the same checks;
+  6. albtrn   ibcnd=1 (slab albedo and transmission, nstr=4: B1, B2)
+              through the CLI on config 1's column at three incidence
+              angles: finite, 0 <= albedo, trn <= 1 and albedo + trn <= 1
+              (to 1e-5) over the black surface, the kernel route within
+              5e-4 of the plain route;
+     batch    BASELINE config 5 at a reduced scale through run_batch: the
+              full 0.25-40 um sweep (1989 samples x 3 k-terms x 32
+              layers, cloud and aerosol) x 32 solar zeniths x 128
+              perturbed columns, in column chunks of 1024 and band chunks
+              of 32 (the Planck source on every chunk: B3, B2), with
+              columns/s, band-columns/s and one column chunk's device busy
+              ms and idle share: fluxes finite, a resume from its
+              checkpoints (the last one removed and recomputed) equal to
+              the first run bit for bit, the nominal column within 5e-4 of
+              run_pipeline's integrated fluxes, fdn >= -1e-6 of its max on
+              the float64 plain route (65 columns), float32 within 1e-2 of
+              it there and its fdn >= -5e-4 of its max; its solar-only
+              sub-batch (0.25-4 um, nothrm=1, 64 columns: B1, B2) within
+              5e-4 of the plain path;
+     distributed  init_distributed on NCCL with a world of one: run_batch
+              through the process-group route equal to the run without
+              one, bit for bit.
 
-Kernel launch counters are zeroed just before each run of phases 4 and
-5 and read just after it: each kernel must have been launched by the runs
-whose path holds it; B5's launches on phases 4 and 5 are also counted by
+Kernel launch counters are zeroed just before each run of phases 4 to
+6 and read just after it: each kernel must have been launched by the runs
+whose path holds it; B5's launches on phases 4 to 6 are also counted by
 shape (an "rt_shapes" line).  Then come the run's seconds (in all, the kernel
 phase, each main-path phase), the kernels summary, the nvidia-smi line,
 and as the last line {"ok": true, "device": {...}}.  Without a CUDA
@@ -174,6 +196,26 @@ INPUT_C4 = """ &INPUT
    nzen=6, uzen=0,30,60,75,120,150, nphi=3, phi=0,90,180, iout=20
  /
 """
+# ibcnd=1: the slab albedo/transmission of config 1's column (0.25-2 um at
+# 0.005 um) at three incidence angles, over a black surface (albcon 0)
+INPUT_ALBTRN = """ &INPUT
+   idatm=2, wlinf=0.25, wlsup=2.0, wlinc=0.005, nstr=4, ibcnd=1,
+   nzen=3, uzen=0,45,75
+ /
+"""
+# BASELINE config 5 (pod-scale batch): the full 0.25-40 um sweep on a
+# 20 cm^-1 grid (1989 samples x 3 k-terms x 32 layers), a water cloud and
+# rural aerosol whose burdens the columns scale; C5_ZENITHS solar zeniths
+# x C5_COLUMNS perturbed columns = 4096, cut from 10^5 by the script's time
+# limit.  {nothrm}=1 with wlsup=4 is its solar-only sub-batch.
+INPUT_C5 = """ &INPUT
+   idatm=2, wlinf=0.25, wlsup={wlsup}, wlinc=-20.0, nothrm={nothrm},
+   zcloud=2, tcloud=10, nre=10, iaer=1, vis=10, albcon=0.2, nstr=4
+ /
+"""
+C5_ZENITHS, C5_COLUMNS = 32, 128
+C5_COL_CHUNK, C5_BAND_CHUNK = 1024, 32
+C5_PIPELINE_COLUMN = 8          # unperturbed, at the 9th solar zenith
 # 20 user cosines (SBDART's uzen limit, the kernel's MAX_ANGLES), both signs
 UMU_20 = tuple(round(s * (0.05 + 0.1 * k), 2) for s in (1, -1)
                for k in range(10))
@@ -245,16 +287,20 @@ def graph_ms(fn, reps: int, replays: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_events(fn, reps: int):
+def device_events(fn, reps: int, warmup: bool = True, cpu: bool = True):
     """The device operations (kernels, copies, fills) of `reps` calls of
-    fn(), from torch.profiler, as (name, microseconds) pairs."""
+    fn(), from torch.profiler, as (name, microseconds) pairs (after one
+    call outside the profiler unless `warmup` is false; without recording
+    the host's operations where `cpu` is false, which halves the
+    profiler's cost on long windows)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]
+                 + [ProfilerActivity.CPU] * cpu) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -1873,6 +1919,252 @@ def phase_cli_config4(nstr=16):
     return rec
 
 
+def phase_albtrn():
+    """ibcnd=1 through the CLI on the card in float32 (B1 and B2): the
+    slab albedo and transmission at three incidence angles are finite,
+    0 <= albedo, trn <= 1 and albedo + trn <= 1 over the black surface
+    (to 1e-5), and the kernel route is within E2E_BAR of the plain route
+    on the card."""
+    import numpy as np
+
+    from sbdart_tpu_torch.outputs import format_albtrn
+    from sbdart_tpu_torch.pipeline import run_albtrn
+
+    cfg, text, cli_s = run_cli(INPUT_ALBTRN)
+    res = run_albtrn(cfg)
+    if format_albtrn(res) != text:
+        raise SmokeFailure("albtrn: text differs from run_albtrn's")
+    t0 = time.perf_counter()
+    plain = run_albtrn(cfg, eig_method="plain")
+    plain_s = time.perf_counter() - t0
+    a, t = res.albmed, res.trnmed
+    errs = {f: float(np.abs(getattr(res, f) - getattr(plain, f)).max()
+                     / np.abs(getattr(plain, f)).max())
+            for f in ("albmed", "trnmed")}
+    rec = {"phase": "albtrn", "input": "ibcnd=1, nstr=4, uzen 0/45/75",
+           "dtype": str(a.dtype), "shape": list(a.shape),
+           "seconds": cli_s, "plain_seconds": plain_s,
+           "albedo_min": float(a.min()), "albedo_max": float(a.max()),
+           "trn_max": float(t.max()), "albedo_plus_trn_max": float(
+               (a + t).max()), "rel_err": errs, "bar": E2E_BAR,
+           "first_rows": text.splitlines()[:4]}
+    emit(rec)
+    if a.shape != (len(res.wl), 3) or not (np.isfinite(a).all()
+                                           and np.isfinite(t).all()):
+        raise SmokeFailure("albtrn: non-finite or misshapen output")
+    if a.min() < 0.0 or t.max() > 1 + 1e-5 or (a + t).max() > 1 + 1e-5:
+        raise SmokeFailure(f"albtrn: albedo {a.min()}..{a.max()}, trn max "
+                           f"{t.max()}, albedo + trn max {(a + t).max()}")
+    if max(errs.values()) > E2E_BAR:
+        raise SmokeFailure(f"albtrn: kernel vs plain route {errs}")
+    return rec
+
+
+def c5_batch(ncols=None):
+    """The config 5 batch: perturbation k of C5_COLUMNS at zenith z of
+    C5_ZENITHS is column k * C5_ZENITHS + z; perturbation 0 is the nominal
+    column (every scale 1), the others draw gas (0.7-1.3), cloud and
+    aerosol burdens (0-2) and albedo (0.5-1.5) scales from numpy seed 5.
+    The first `ncols` columns, or all."""
+    import numpy as np
+
+    from sbdart_tpu_torch.batch import ColumnBatch
+
+    rng = np.random.default_rng(5)
+    scales = {k: rng.uniform(lo, hi, C5_COLUMNS) for k, lo, hi in (
+        ("gas_scale", 0.7, 1.3), ("cld_scale", 0.0, 2.0),
+        ("aer_scale", 0.0, 2.0), ("albedo_scale", 0.5, 1.5))}
+    for v in scales.values():
+        v[0] = 1.0
+    csza = np.cos(np.deg2rad(np.linspace(0.0, 85.0, C5_ZENITHS)))
+    n = C5_COLUMNS * C5_ZENITHS if ncols is None else ncols
+    return ColumnBatch(csza=np.tile(csza, C5_COLUMNS)[:n],
+                       **{k: np.repeat(v, C5_ZENITHS)[:n]
+                          for k, v in scales.items()})
+
+
+def batch_errs(got, want, cols=slice(None)):
+    """max |got - want| / max |want| of each integrated flux (of `got`'s
+    columns `cols`)."""
+    import numpy as np
+
+    return {f: float(np.abs(getattr(got, f)[cols] - getattr(want, f)).max()
+                     / np.abs(getattr(want, f)).max())
+            for f in ("fdir", "fdn", "fup")}
+
+
+def c5_columns(batch, cols):
+    """The columns `cols` of a ColumnBatch, as a ColumnBatch."""
+    from sbdart_tpu_torch.batch import ColumnBatch
+
+    return ColumnBatch(**{k: getattr(batch, k)[cols] for k in (
+        "csza", "gas_scale", "cld_scale", "aer_scale", "albedo_scale")})
+
+
+def phase_batch(device):
+    """BASELINE config 5 at a reduced scale through run_batch on the card
+    in float32 (the Planck source on every chunk: B3 and B2), timed, then
+    one column chunk's device busy time from a resume that recomputes it
+    under the profiler.  Checks: every flux finite; the resume (every other
+    chunk from its checkpoint) equal to the first run bit for bit; the
+    nominal column within E2E_BAR of run_pipeline's spectrally integrated
+    fluxes at its zenith; fdn >= -1e-6 of its max on the float64 plain
+    route on the card (the first 64 columns and the float32 run's most
+    negative one), the float32 fluxes there within OLR_BAR of it, and the
+    float32 fdn >= -E2E_BAR of its max: where fdn is zero (the top level)
+    float32 leaves rounding of either sign, as the plain route on the card
+    and the CPU do alike."""
+    import numpy as np
+
+    from sbdart_tpu_torch.batch import run_batch
+    from sbdart_tpu_torch.dtypes import default_dtype
+    from sbdart_tpu_torch.namelist import loads_namelist
+    from sbdart_tpu_torch.outputs import integrate_spectral
+    from sbdart_tpu_torch.pipeline import run_pipeline
+    from sbdart_tpu_torch.solar import spectral_grid
+
+    cfg = loads_namelist(INPUT_C5.format(wlsup=40.0, nothrm=-1)).validate()
+    batch = c5_batch()
+    n, nwl = len(batch), len(spectral_grid(cfg))
+    kw = dict(band_chunk=C5_BAND_CHUNK, col_chunk=C5_COL_CHUNK, device=device)
+    with tempfile.TemporaryDirectory() as ck:
+        t0 = time.perf_counter()
+        res = run_batch(cfg, batch, checkpoint_dir=ck, **kw)
+        wall = time.perf_counter() - t0
+        lo = (n - 1) // C5_COL_CHUNK * C5_COL_CHUNK
+        os.remove(os.path.join(ck, f"cols_{lo}_{n}.npz"))
+        out = []
+        ev = device_events(lambda: out.append(run_batch(
+            cfg, batch, checkpoint_dir=ck, **kw)), 1, warmup=False,
+            cpu=False)
+        resumed = out[0]
+    z = C5_PIPELINE_COLUMN
+    sza = float(np.rad2deg(np.arccos(batch.csza[z])))
+    ref = run_pipeline(cfg.replace(sza=sza))
+    pipe = {"fdn": (res.fdir[z] + res.fdn[z],
+                    integrate_spectral(ref, ref.fdir + ref.fdn)),
+            "fup": (res.fup[z], integrate_spectral(ref, ref.fup))}
+    pipe_err = {k: float(np.abs(a - b).max() / np.abs(b).max())
+                for k, (a, b) in pipe.items()}
+    worst = int(np.unravel_index(np.argmin(res.fdn), res.fdn.shape)[0])
+    cols = list(range(64)) + [worst]
+    t0 = time.perf_counter()
+    r64 = run_batch(cfg, c5_columns(batch, cols), band_chunk=512,
+                    dtype="float64", eig_method="plain", device=device)
+    f64_s = time.perf_counter() - t0
+    f32_vs_f64 = batch_errs(res, r64, cols)
+    busy = sum(t for _, t in ev) / 1e3 if ev else None
+    chunk_wall = wall / -(-n // C5_COL_CHUNK) * 1e3
+    per = {k: sum(t for name, t in ev if re.search(spec[4], name)) / 1e3
+           for k, spec in KERNELS.items()}
+    rec = {"phase": "batch", "input": "BASELINE config 5, reduced",
+           "reduced": f"{n} columns ({C5_ZENITHS} zeniths x {C5_COLUMNS} "
+                      "perturbed) of 10^5: the script's time limit",
+           "columns": n, "wavelengths": nwl, "k_terms": 3,
+           "layers": int(res.fdn.shape[1] - 1),
+           "dtype": str(default_dtype(device)),
+           "col_chunk": C5_COL_CHUNK, "band_chunk": C5_BAND_CHUNK,
+           "seconds": wall, "columns_per_s": n / wall,
+           "band_columns_per_s": n * nwl / wall,
+           "column_chunk_wall_ms": chunk_wall,
+           "column_chunk_device_busy_ms": busy,
+           "column_chunk_device_idle_share": (
+               None if busy is None else max(0.0, 1.0 - busy / chunk_wall)),
+           "column_chunk_kernel_device_ms": {k: v for k, v in per.items()
+                                             if v},
+           "column_chunk_device_ops": len(ev),
+           "surface_fdn_mean": float((res.fdir + res.fdn)[:, -1].mean()),
+           "pipeline_column_sza": sza, "pipeline_rel_err": pipe_err,
+           "bar": E2E_BAR, "fdn_min_over_max": float(
+               res.fdn.min() / np.abs(res.fdn).max()),
+           "fdn_min_column": worst,
+           "f64_fdn_min_over_max": float(r64.fdn.min()
+                                         / np.abs(r64.fdn).max()),
+           "f32_vs_f64": f32_vs_f64, "f64_bar": OLR_BAR,
+           "f64_plain_seconds": f64_s}
+    emit(rec)
+    fields = (res.fdir, res.fdn, res.fup)
+    if not all(np.isfinite(f).all() and f.shape == (n, 33) for f in fields):
+        raise SmokeFailure("batch: non-finite or misshapen fluxes")
+    if not all(np.array_equal(getattr(resumed, f), getattr(res, f))
+               for f in ("fdir", "fdn", "fup")):
+        raise SmokeFailure("batch: resume differs from the first run")
+    if max(pipe_err.values()) > E2E_BAR:
+        raise SmokeFailure(f"batch: nominal column vs run_pipeline {pipe_err}")
+    if (rec["f64_fdn_min_over_max"] < -1e-6
+            or rec["fdn_min_over_max"] < -E2E_BAR
+            or max(f32_vs_f64.values()) > OLR_BAR):
+        raise SmokeFailure(f"batch: fdn {rec['fdn_min_over_max']} of max "
+                           f"(float64 {rec['f64_fdn_min_over_max']}), float32 "
+                           f"vs float64 {f32_vs_f64}")
+    return rec
+
+
+def phase_batch_solar(device):
+    """config 5's solar-only sub-batch (0.25-4 um, nothrm=1: B1 and B2),
+    its first 64 columns in band chunks of 512, through the kernels within
+    E2E_BAR of the plain path on the card."""
+    from sbdart_tpu_torch.batch import run_batch
+    from sbdart_tpu_torch.namelist import loads_namelist
+
+    cfg = loads_namelist(INPUT_C5.format(wlsup=4.0, nothrm=1)).validate()
+    batch = c5_batch(64)
+    kw = dict(band_chunk=512, device=device)
+    t0 = time.perf_counter()
+    res = run_batch(cfg, batch, **kw)
+    k_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = run_batch(cfg, batch, eig_method="plain", **kw)
+    p_s = time.perf_counter() - t0
+    errs = batch_errs(res, plain)
+    rec = {"phase": "batch", "input": "config 5 solar-only sub-batch",
+           "columns": len(batch), "seconds": k_s, "plain_seconds": p_s,
+           "rel_err": errs, "bar": E2E_BAR}
+    emit(rec)
+    if max(errs.values()) > E2E_BAR:
+        raise SmokeFailure(f"batch solar: kernel vs plain path {errs}")
+    return rec
+
+
+def phase_distributed(device):
+    """init_distributed on NCCL with a world of one (a file store): the
+    first 256 columns of config 5 through run_batch's process-group route
+    (one all-reduce over the band group, one all-gather over the data
+    group) equal the run without a process group to the bit."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from sbdart_tpu_torch.batch import run_batch
+    from sbdart_tpu_torch.namelist import loads_namelist
+    from sbdart_tpu_torch.sharding import init_distributed, make_mesh
+
+    cfg = loads_namelist(INPUT_C5.format(wlsup=40.0, nothrm=-1)).validate()
+    batch = c5_batch(256)
+    kw = dict(band_chunk=C5_BAND_CHUNK, device=device)
+    single = run_batch(cfg, batch, **kw)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        init_distributed(f"file://{tmp}/init", 1, 0, backend="nccl")
+        try:
+            backend = dist.get_backend()
+            mesh = make_mesh(1)
+            grouped = run_batch(cfg, batch, mesh=mesh, **kw)
+        finally:
+            dist.destroy_process_group()
+        seconds = time.perf_counter() - t0
+    equal = all(np.array_equal(getattr(grouped, f), getattr(single, f))
+                for f in ("fdir", "fdn", "fup"))
+    rec = {"phase": "distributed", "backend": backend, "world_size": 1,
+           "mesh": mesh.shape, "columns": len(batch), "seconds": seconds,
+           "equal_to_single_run": equal,
+           "untested": "two or more cards (one card here: NCCL refuses "
+                       "two ranks on one device)"}
+    emit(rec)
+    if backend != "nccl" or not equal:
+        raise SmokeFailure(f"distributed: backend {backend}, equal {equal}")
+    return rec
+
+
 KERNELS = {   # name: (wrapper module, wrapper, source, the TPU kernel,
               #        a regular expression for its CUDA kernels' names:
               #        B4 and B9 share eig_beam_group_kernel<N, G, kBeam>)
@@ -2095,6 +2387,12 @@ def main() -> int:
          ("blocktri_rt_fwd_group", "blocktri_rt_bwd_group")),
         (lambda: phase_generic(device, 1, "G10", bvp_method="scan", bar=0.0),
          ("block_thomas_group",)),
+        (phase_albtrn, ("eig_n2_deltam", "blocktri_rt_n2")),
+        (lambda: phase_batch(device), ("eig_n2_scatter", "blocktri_rt_n2")),
+        (lambda: phase_batch_solar(device),
+         ("eig_n2_deltam", "blocktri_rt_n2")),
+        (lambda: phase_distributed(device),
+         ("eig_n2_scatter", "blocktri_rt_n2")),
     ]
     launches = dict.fromkeys(KERNELS, 0)
     walls = []

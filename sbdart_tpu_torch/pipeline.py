@@ -120,11 +120,72 @@ def user_angles(cfg: Config):
     return np.where(np.abs(umu) < 1e-4, 1e-4, umu), phi
 
 
-def run_albtrn(cfg: Config, *args, **kw):
-    """The ibcnd=1 albedo/transmissivity mode is not ported yet."""
-    raise NotImplementedError(
-        "ibcnd=1 (run_albtrn, disort.f:ALBTRN) is not ported yet: ROADMAP "
-        "Queue A item 10, the ibcnd=1 slice"
+@dataclasses.dataclass
+class AlbTrnResult:
+    """ibcnd=1 (disort.f:ALBTRN) results: slab albedo & transmissivity."""
+    cfg: Config
+    profile: Profile
+    wl: np.ndarray        # [nwl]
+    umu: np.ndarray       # [numu] incidence cosines
+    albmed: np.ndarray    # [nwl, numu]
+    trnmed: np.ndarray    # [nwl, numu]
+
+
+def run_albtrn(
+    cfg: Config,
+    profile: Profile | None = None,
+    dtype=None,
+    usrcld: np.ndarray | None = None,
+    aer_table=None,
+    eig_method: str = "auto",
+    device=None,
+) -> AlbTrnResult:
+    """The ibcnd=1 special mode: plane albedo / total transmissivity of the
+    whole slab per incidence angle (disort.f:ALBTRN/ALTRIN/SPALTR), batched
+    over the spectral grid (sbdart_tpu/pipeline.py:124-180).  `eig_method` as in
+    solve_rte."""
+    from sbdart_tpu_torch.solver.albtrn import slab_albedo_transmission
+
+    device = default_device() if device is None else torch.device(device)
+    if dtype is None:
+        dtype = parse_dtype(cfg.dtype) if cfg.dtype else default_dtype(device)
+    dtype = parse_dtype(dtype)
+    if profile is None:
+        profile = build_profile(cfg)
+    wl = spectral_grid(cfg)
+    nzen = int(cfg.nzen)
+    if nzen <= 0:
+        raise ValueError(
+            "ibcnd=1 needs incidence angles: set nzen and uzen (degrees)"
+        )
+    uzen = np.array(cfg.uzen[:nzen], np.float64)
+    umu = np.abs(np.cos(np.deg2rad(uzen)))
+    nmom = cfg.nstr + 1
+    deck = build_optical_deck(profile, cfg, wl, nmom, usrcld, aer_table)
+    # gas k-terms: the weighted-mean optical depth (ALBTRN is a
+    # monochromatic slab property; k-weighting the albedo itself would mix
+    # nonlinearly), as the reference does
+    dtau = np.einsum("wk,wkl->wl", deck.wk, deck.dtau)
+    ssalb = np.einsum("wk,wkl->wl", deck.wk, deck.ssalb * deck.dtau) / np.maximum(
+        dtau, 1e-30
+    )
+
+    def t(x):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    albmed, trnmed = slab_albedo_transmission(
+        t(dtau), t(np.clip(ssalb, 0.0, 1.0)), t(deck.pmom),
+        nstr=cfg.nstr,
+        umu=t(umu),
+        albedo=cfg.albcon,
+        deltam=cfg.deltam,
+        dtype=dtype,
+        eig_method=eig_method,
+        device=device,
+    )
+    return AlbTrnResult(
+        cfg=cfg, profile=profile, wl=wl, umu=umu,
+        albmed=albmed.cpu().numpy(), trnmed=trnmed.cpu().numpy(),
     )
 
 

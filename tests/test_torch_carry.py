@@ -110,7 +110,8 @@ def test_port_imports_without_jax():
             "kernels.eig_beam", "kernels.blocktri_rt",
             "kernels.blocktri_rt_streamed", "kernels._build",
             "kernels.eig_n2", "kernels.radsrc", "solver.radlane",
-            "solver.radiance", "solver.brdf", "convert")
+            "solver.radiance", "solver.brdf", "convert", "solver.albtrn",
+            "batch", "sharding")
     code = ("import sys, importlib\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module('sbdart_tpu_torch.' + m)\n"

@@ -2,22 +2,30 @@
 the reference (float64, CPU): stream counts whose N = nstr/2 is odd or
 above 8, flux-only solves on a BRDF surface, and all-mode solves with or
 without user angles, thermal or not (`route`, named below); nothing is
-refused for N.  ibcnd=1 is a later slice.
+refused for N.  ibcnd=1 runs the slab albedo/transmission mode and matches
+the reference's.
 
 The reference runs under one jax.jit (tests/test_torch_generic.py:
 ref_solve); the bar is 1e-9 of each field's max (measured <= 6e-15).
 """
+
+import contextlib
+import io
 
 import numpy as np
 import pytest
 import torch
 
 from sbdart_tpu.config import Config as RefConfig
+from sbdart_tpu.namelist import loads_namelist as ref_loads_namelist
+from sbdart_tpu.outputs import format_albtrn as ref_format_albtrn
+from sbdart_tpu.pipeline import run_albtrn as ref_run_albtrn
 from sbdart_tpu.pipeline import run_pipeline as ref_run_pipeline
 from sbdart_tpu.solver.brdf import HapkeBrdf
 from sbdart_tpu.solver.brdf import RpvBrdf as RefRpvBrdf
 from sbdart_tpu_torch import cli
 from sbdart_tpu_torch.config import Config
+from sbdart_tpu_torch.namelist import loads_namelist
 from sbdart_tpu_torch.pipeline import run_albtrn, run_pipeline
 from sbdart_tpu_torch.solver.disort import route, solve_rte
 from test_torch_generic import ref_solve, worst
@@ -147,14 +155,34 @@ def test_pipeline_generic_requests_match_reference(name):
 
 
 def test_ibcnd1_refused_by_albtrn_and_cli(tmp_path, monkeypatch):
+    """ibcnd=1 is refused by run_pipeline (it names run_albtrn) and by
+    run_albtrn without incidence angles, as the reference's; with them,
+    run_albtrn and the CLI text match the reference's (float64)."""
     monkeypatch.setenv("SBDART_TPU_DEVICE", "cpu")
     cfg = Config(idatm=2, wlinf=0.5, wlsup=0.6, wlinc=0.05, nstr=4,
                  ibcnd=1).validate()
-    with pytest.raises(NotImplementedError, match="ibcnd=1"):
+    with pytest.raises(ValueError, match="incidence angles"):
         run_albtrn(cfg)
     with pytest.raises(ValueError, match="run_albtrn"):
         run_pipeline(cfg)
+    text = (" &INPUT\n   idatm=2, wlinf=0.5, wlsup=0.6, wlinc=0.05, "
+            "nstr=4, ibcnd=1,\n   nzen=3, uzen=0,45,75, albcon=0.1\n /\n")
+    ref = ref_run_albtrn(ref_loads_namelist(text).validate())
+    got = run_albtrn(loads_namelist(text).validate())
+    assert got.umu.tolist() == ref.umu.tolist()
+    for field in ("albmed", "trnmed"):
+        a, b = getattr(got, field), np.asarray(getattr(ref, field))
+        assert a.shape == b.shape == (3, 3) and np.isfinite(a).all()
+        assert np.abs(a - b).max() <= 1e-9 * np.abs(b).max(), field
     path = tmp_path / "INPUT"
-    path.write_text(" &INPUT\n   ibcnd=1, nzen=1, uzen=30, nstr=4\n /\n")
-    with pytest.raises(NotImplementedError, match="ibcnd=1"):
-        cli.main([str(path)])
+    path.write_text(text)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert cli.main([str(path)]) == 0
+    want = ref_format_albtrn(ref).splitlines()
+    lines = buf.getvalue().splitlines()
+    assert len(lines) == len(want) == 12
+    for a, b in zip(lines, want):
+        if a != b:     # the last printed digit may part: numbers to 1e-9
+            np.testing.assert_allclose(np.array(a.split(), float),
+                                       np.array(b.split(), float), rtol=1e-9)

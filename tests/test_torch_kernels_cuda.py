@@ -20,6 +20,7 @@ strided views at N = 2, 4, 6 and 8, U = 1 and 20 and 130 lanes, with
 resonance lanes, a NaN lane and lanes that take its exact division.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -962,3 +963,103 @@ def test_solve_rte_f32_runs_nstr128(cuda_device, bvp_method):
         g = getattr(got, name)
         assert torch.isfinite(g).all(), name
         assert torch.equal(g, getattr(want, name)), name
+
+
+def _rel_err(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape and np.isfinite(got).all()
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
+@pytest.mark.cuda
+def test_slab_albedo_transmission_kernels_match_plain(cuda_device):
+    """ibcnd=1 at nstr=4 in float32 (B1 and B2 on the fluxlane route),
+    against the plain path on the card: 64 spectral samples x 3 incidence
+    cosines x 32 layers, within 5e-4 of each field's max."""
+    from sbdart_tpu_torch.kernels.blocktri_n2 import block_thomas_rt_n2
+    from sbdart_tpu_torch.kernels.eig_n2 import eig_beam_deltam_scatter_n2
+    from sbdart_tpu_torch.solver.albtrn import slab_albedo_transmission
+
+    rng = np.random.default_rng(0)
+    dtau = rng.uniform(0.001, 1.0, (64, 32))
+    ssalb = rng.uniform(0.3, 1.0, (64, 32))
+    pmom = rng.uniform(0.0, 0.8, (64, 32, 1)) ** np.arange(5)
+    umu = np.cos(np.deg2rad([0.0, 45.0, 75.0]))
+    kw = dict(nstr=4, umu=umu, albedo=0.1, dtype=torch.float32,
+              device=cuda_device)
+    before = (eig_beam_deltam_scatter_n2.launches, block_thomas_rt_n2.launches)
+    got = slab_albedo_transmission(dtau, ssalb, pmom, **kw)
+    torch.cuda.synchronize()
+    assert (eig_beam_deltam_scatter_n2.launches,
+            block_thomas_rt_n2.launches) == tuple(b + 1 for b in before)
+    want = slab_albedo_transmission(dtau, ssalb, pmom, eig_method="plain",
+                                    **kw)
+    for g, w in zip(got, want):
+        assert g.shape == (64, 3)
+        assert _rel_err(g.cpu(), w.cpu()) <= 5e-4
+
+
+BATCH_CFG = dict(idatm=2, wlinf=1.5, wlsup=4.0, wlinc=0.05, nstr=4,
+                 albcon=0.2, tcloud=[5.0, 0, 0, 0, 0],
+                 zcloud=[2.0, 0, 0, 0, 0], iaer=1)
+
+
+def _batch(n=64):
+    from sbdart_tpu_torch.batch import ColumnBatch
+
+    rng = np.random.default_rng(0)
+    return ColumnBatch(csza=rng.uniform(0.2, 1.0, n),
+                       gas_scale=rng.uniform(0.8, 1.2, n),
+                       cld_scale=rng.uniform(0.5, 1.5, n),
+                       aer_scale=rng.uniform(0.5, 1.5, n),
+                       albedo_scale=rng.uniform(0.5, 1.5, n))
+
+
+@pytest.mark.cuda
+def test_run_batch_kernels_match_plain(cuda_device):
+    """run_batch in float32 with the Planck source on (the band crosses
+    2 um: B3 and B2 on every chunk), 64 perturbed columns in chunks of 32,
+    against the plain path on the card within 5e-4 of each field's max."""
+    from sbdart_tpu_torch.batch import run_batch
+    from sbdart_tpu_torch.config import Config
+    from sbdart_tpu_torch.kernels.blocktri_n2 import block_thomas_rt_n2
+    from sbdart_tpu_torch.kernels.eig_n2_scatter import eig_beam_scatter_n2
+
+    kw = dict(band_chunk=8, col_chunk=32, dtype=torch.float32,
+              device=cuda_device)
+    before = (eig_beam_scatter_n2.launches, block_thomas_rt_n2.launches)
+    got = run_batch(Config(**BATCH_CFG), _batch(), **kw)
+    nsolve = 2 * -(-51 // 8)            # 2 column chunks x 7 band chunks
+    assert (eig_beam_scatter_n2.launches,
+            block_thomas_rt_n2.launches) == tuple(b + nsolve for b in before)
+    want = run_batch(Config(**BATCH_CFG), _batch(), eig_method="plain", **kw)
+    for field in ("fdir", "fdn", "fup"):
+        assert _rel_err(getattr(got, field), getattr(want, field)) <= 5e-4
+
+
+@pytest.mark.cuda
+def test_run_batch_world_of_one_nccl_equals_single_run(cuda_device,
+                                                       tmp_path):
+    """init_distributed on NCCL with a world of one: run_batch through the
+    process-group route (one all-reduce, one all-gather) equals the run
+    without a process group to the bit."""
+    import torch.distributed as dist
+
+    from sbdart_tpu_torch.batch import run_batch
+    from sbdart_tpu_torch.config import Config
+    from sbdart_tpu_torch.sharding import init_distributed, make_mesh
+
+    kw = dict(band_chunk=8, col_chunk=48, dtype=torch.float32,
+              device=cuda_device)
+    single = run_batch(Config(**BATCH_CFG), _batch(), **kw)
+    init_distributed(f"file://{tmp_path / 'init'}", 1, 0, backend="nccl")
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = make_mesh(1)
+        assert mesh.distributed
+        grouped = run_batch(Config(**BATCH_CFG), _batch(), mesh=mesh, **kw)
+    finally:
+        dist.destroy_process_group()
+    for field in ("fdir", "fdn", "fup"):
+        np.testing.assert_array_equal(getattr(grouped, field),
+                                      getattr(single, field))
