@@ -9,10 +9,11 @@ or, to compare two checkouts on one card (run them in turns, all on the
 same card: parent, change, change, parent), time the BVP and eigen
 kernels of the package in another checkout at this script's shapes:
 
-    python3 chip_smoke.py --ab PATH/TO/CHECKOUT [radsrc,solves,kernels]
+    python3 chip_smoke.py --ab PATH/TO/CHECKOUT [radsrc,solves,kernels,batch]
 
 (the optional list picks --ab's groups: B7's rows, the radiance solves'
-breakdowns, the other kernels' rows; all three by default)
+breakdowns, the other kernels' rows; all three by default; "batch", only
+when named, times config 5's batch through run_batch)
 
 Phases, one JSON line each; the first failure exits non-zero:
 
@@ -126,8 +127,17 @@ Phases, one JSON line each; the first failure exits non-zero:
               sub-batch (0.25-4 um, nothrm=1, 64 columns: B1, B2) within
               5e-4 of the plain path;
      distributed  init_distributed on NCCL with a world of one: run_batch
-              through the process-group route equal to the run without
-              one, bit for bit.
+              (config 5's first 256 columns in two column chunks) through
+              the process-group route with a checkpoint directory, equal
+              to the run without one, bit for bit; then (a "resume" line
+              with its seconds) its resumes on the grid: from every
+              checkpoint equal and launching no kernel, with one file
+              poisoned showing the poison, with that file deleted
+              recomputing that chunk alone, equal again; and (a
+              "local_rank" line) sharding._local_rank refusing, with
+              LOCAL_RANK unset, a process id at the card count;
+  7. planck_total  sigma T^4 / pi in float64 on the card over 1e-6-1e4 K
+              against NumPy's, relative error <= 1e-12.
 
 Kernel launch counters are zeroed just before each run of phases 4 to
 6 and read just after it: each kernel must have been launched by the runs
@@ -216,6 +226,9 @@ INPUT_C5 = """ &INPUT
 C5_ZENITHS, C5_COLUMNS = 32, 128
 C5_COL_CHUNK, C5_BAND_CHUNK = 1024, 32
 C5_PIPELINE_COLUMN = 8          # unperturbed, at the 9th solar zenith
+# the NCCL world of one: config 5's first 256 columns in two column chunks
+C5_DIST_COLUMNS, C5_DIST_COL_CHUNK = 256, 128
+PLANCK_TOTAL_BAR = 1e-12        # f64 planck_total vs NumPy, relative
 # 20 user cosines (SBDART's uzen limit, the kernel's MAX_ANGLES), both signs
 UMU_20 = tuple(round(s * (0.05 + 0.1 * k), 2) for s in (1, -1)
                for k in range(10))
@@ -2128,40 +2141,143 @@ def phase_batch_solar(device):
 
 def phase_distributed(device):
     """init_distributed on NCCL with a world of one (a file store): the
-    first 256 columns of config 5 through run_batch's process-group route
-    (one all-reduce over the band group, one all-gather over the data
-    group) equal the run without a process group to the bit."""
+    first 256 columns of config 5, in two column chunks, through run_batch's
+    process-group route (one all-reduce over the band group, one all-gather
+    over the data group) with a checkpoint directory, equal to the run
+    without a process group to the bit; then three resumes on the grid,
+    each after the agreement collective (an all-reduce on NCCL), on a
+    "resume" line with their seconds: from every checkpoint (equal, no
+    kernel launched), with the first chunk's file poisoned (the poison
+    shows, the rest equal) and with that file deleted (that chunk alone
+    recomputed, equal again).  Last, with LOCAL_RANK unset,
+    sharding._local_rank refuses a process id at the card count."""
     import numpy as np
+    import torch
     import torch.distributed as dist
 
     from sbdart_tpu_torch.batch import run_batch
+    from sbdart_tpu_torch.kernels.blocktri_n2 import block_thomas_rt_n2
+    from sbdart_tpu_torch.kernels.eig_n2_scatter import eig_beam_scatter_n2
     from sbdart_tpu_torch.namelist import loads_namelist
-    from sbdart_tpu_torch.sharding import init_distributed, make_mesh
+    from sbdart_tpu_torch.sharding import (
+        _local_rank,
+        init_distributed,
+        make_mesh,
+    )
 
     cfg = loads_namelist(INPUT_C5.format(wlsup=40.0, nothrm=-1)).validate()
-    batch = c5_batch(256)
-    kw = dict(band_chunk=C5_BAND_CHUNK, device=device)
+    batch = c5_batch(C5_DIST_COLUMNS)
+    kw = dict(band_chunk=C5_BAND_CHUNK, col_chunk=C5_DIST_COL_CHUNK,
+              device=device)
+    fields = ("fdir", "fdn", "fup")
     single = run_batch(cfg, batch, **kw)
+
+    def equal(res, cols=slice(None)):
+        return all(np.array_equal(getattr(res, f)[cols],
+                                  getattr(single, f)[cols]) for f in fields)
+
+    def launched():
+        return eig_beam_scatter_n2.launches + block_thomas_rt_n2.launches
+
     with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ck")
+        first = os.path.join(ck, f"cols_0_{C5_DIST_COL_CHUNK}.npz")
         t0 = time.perf_counter()
         init_distributed(f"file://{tmp}/init", 1, 0, backend="nccl")
         try:
             backend = dist.get_backend()
             mesh = make_mesh(1)
-            grouped = run_batch(cfg, batch, mesh=mesh, **kw)
+            n0 = launched()
+            grouped = run_batch(cfg, batch, mesh=mesh, checkpoint_dir=ck,
+                                **kw)
+            first_launches = launched() - n0
+            seconds = time.perf_counter() - t0
+            files = sorted(f for f in os.listdir(ck) if f.endswith(".npz"))
+            t0 = time.perf_counter()
+            n0 = launched()
+            resumed = run_batch(cfg, batch, mesh=mesh, checkpoint_dir=ck,
+                                **kw)
+            resume_launches = launched() - n0
+            with np.load(first) as z:
+                arrays = {f: z[f] for f in fields}
+            np.savez(first, **{**arrays, "fdir": arrays["fdir"] * 0 + 7.0})
+            poisoned = run_batch(cfg, batch, mesh=mesh, checkpoint_dir=ck,
+                                 **kw)
+            os.remove(first)
+            n0 = launched()
+            recomputed = run_batch(cfg, batch, mesh=mesh, checkpoint_dir=ck,
+                                   **kw)
+            recompute_launches = launched() - n0
+            resume_seconds = time.perf_counter() - t0
         finally:
             dist.destroy_process_group()
-        seconds = time.perf_counter() - t0
-    equal = all(np.array_equal(getattr(grouped, f), getattr(single, f))
-                for f in ("fdir", "fdn", "fup"))
+    first_equal = equal(grouped)
     rec = {"phase": "distributed", "backend": backend, "world_size": 1,
-           "mesh": mesh.shape, "columns": len(batch), "seconds": seconds,
-           "equal_to_single_run": equal,
+           "mesh": mesh.shape, "columns": len(batch),
+           "col_chunk": C5_DIST_COL_CHUNK, "checkpoints": files,
+           "seconds": seconds, "equal_to_single_run": first_equal,
            "untested": "two or more cards (one card here: NCCL refuses "
                        "two ranks on one device)"}
     emit(rec)
-    if backend != "nccl" or not equal:
-        raise SmokeFailure(f"distributed: backend {backend}, equal {equal}")
+    if backend != "nccl" or not first_equal:
+        raise SmokeFailure(f"distributed: backend {backend}, equal "
+                           f"{first_equal}")
+    rest = slice(C5_DIST_COL_CHUNK, None)
+    resume = {
+        "phase": "resume", "backend": backend, "seconds": resume_seconds,
+        "from_every_checkpoint_equal": equal(resumed),
+        "from_every_checkpoint_launches": resume_launches,
+        "poison_shown": bool(np.all(
+            poisoned.fdir[:C5_DIST_COL_CHUNK] == 7.0)),
+        "poisoned_rest_equal": equal(poisoned, rest),
+        "deleted_chunk_recomputed_equal": equal(recomputed),
+        "recompute_launches": recompute_launches,
+        "first_run_launches": first_launches}
+    emit(resume)
+    if not (resume["from_every_checkpoint_equal"] and resume_launches == 0
+            and resume["poison_shown"] and resume["poisoned_rest_equal"]
+            and resume["deleted_chunk_recomputed_equal"]
+            and 2 * recompute_launches == first_launches > 0
+            and len(files) == 2):
+        raise SmokeFailure(f"distributed resume: {resume}, files {files}")
+    count = torch.cuda.device_count()
+    saved = os.environ.pop("LOCAL_RANK", None)
+    try:
+        _local_rank(count)
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise SmokeFailure(f"_local_rank({count}) without LOCAL_RANK on "
+                           f"{count} cards did not refuse")
+    finally:
+        if saved is not None:
+            os.environ["LOCAL_RANK"] = saved
+    emit({"phase": "local_rank", "process_id": count, "cards": count,
+          "refusal": refusal})
+    return rec
+
+
+def phase_planck_total(device):
+    """solver/planck.py:planck_total in float64 on the card:
+    sigma T^4 / pi over 1e-6-1e4 K (1001 log-spaced temperatures) against
+    NumPy's float64 evaluation, relative error <= 1e-12."""
+    import numpy as np
+    import torch
+
+    from sbdart_tpu_torch.constants import STEFAN_BOLTZMANN
+    from sbdart_tpu_torch.solver.planck import planck_total
+
+    t = 10.0 ** np.linspace(-6.0, 4.0, 1001)
+    got = planck_total(torch.tensor(t, device=device))
+    want = STEFAN_BOLTZMANN / np.pi * t**4
+    rel = float(np.max(np.abs(got.cpu().numpy() - want) / want))
+    rec = {"phase": "planck_total", "kelvin": [float(t[0]), float(t[-1])],
+           "n": len(t), "device": str(got.device), "dtype": str(got.dtype),
+           "max_rel_err": rel, "bar": PLANCK_TOTAL_BAR}
+    emit(rec)
+    if not (got.device.type == "cuda" and got.dtype == torch.float64
+            and rel <= PLANCK_TOTAL_BAR):
+        raise SmokeFailure(f"planck_total: {rec}")
     return rec
 
 
@@ -2410,6 +2526,7 @@ def main() -> int:
                                    f"skipped its kernels {missed}")
             for k, c in counts.items():
                 launches[k] += c
+    phase_planck_total(device)
     emit({"phase": "rt_shapes", "launches": [
         {"n": n, "layers": nlyr, "columns": b, "kernel": rt_kernel(n),
          "launches": c} for (nlyr, n, b), c in sorted(rt_shapes.items())]})
@@ -2596,6 +2713,27 @@ def ab_solves(device):
             *args, eig_method="auto", dtype=torch.float32, **kw))
 
 
+def ab_batch(device, repeats=3):
+    """For `ab_times` (group "batch"): config 5's 4096 columns through
+    run_batch with a checkpoint directory, as the batch phase's first run,
+    `repeats` times in one process (the first also loads the kernels and
+    warms the caches): each run's wall seconds and columns/s."""
+    from sbdart_tpu_torch.batch import run_batch
+    from sbdart_tpu_torch.namelist import loads_namelist
+
+    cfg = loads_namelist(INPUT_C5.format(wlsup=40.0, nothrm=-1)).validate()
+    batch = c5_batch()
+    kw = dict(band_chunk=C5_BAND_CHUNK, col_chunk=C5_COL_CHUNK, device=device)
+    walls = []
+    for _ in range(repeats):
+        with tempfile.TemporaryDirectory() as ck:
+            t0 = time.perf_counter()
+            run_batch(cfg, batch, checkpoint_dir=ck, **kw)
+            walls.append(time.perf_counter() - t0)
+    return {"columns": len(batch), "seconds": walls,
+            "columns_per_s": [len(batch) / w for w in walls]}
+
+
 def ab_times(tree, groups=("radsrc", "solves", "kernels")) -> int:
     """The `--ab` mode: from the sbdart_tpu_torch package of the checkout
     at `tree` (built there), time the kernels of `ab_radsrc_cases`
@@ -2603,9 +2741,10 @@ def ab_times(tree, groups=("radsrc", "solves", "kernels")) -> int:
     torch.profiler) and of `ab_cases` (group "kernels"), one JSON line
     each (device ms per launch, a CUDA graph of 10 launches, median of 5
     replays), and break the radiance solves of `ab_solves` (group
-    "solves") into device busy ms, kernels, copies and operations.  Run
-    on two checkouts in turns (parent, change, change, parent) within one
-    call to compare them on one card."""
+    "solves") into device busy ms, kernels, copies and operations; group
+    "batch", asked for by name only, times config 5's batch
+    (`ab_batch`).  Run on two checkouts in turns (parent, change, change,
+    parent) within one call to compare them on one card."""
     import torch
 
     sys.path.insert(0, os.path.abspath(tree))
@@ -2641,6 +2780,8 @@ def ab_times(tree, groups=("radsrc", "solves", "kernels")) -> int:
         emit(row)
         del call
         torch.cuda.empty_cache()
+    if "batch" in groups:
+        emit({"phase": "ab", "batch": "config 5", **ab_batch(device)})
     if "solves" in groups:
         for name, solve in ab_solves(device):
             solve()

@@ -21,9 +21,13 @@ Design, as the reference's:
     reference's `psum`, the only reduction of the physics), then gathered
     over the data group so every rank holds the whole [C, nlev] result;
   * the host loop processes the global column set in column chunks,
-    rank 0 checkpointing each finished chunk to `<ckpt>/cols_<lo>_<hi>.npz`,
-    every rank skipping chunks already present on restart (jobs are
-    re-runnable and idempotent per shard).
+    every rank checkpointing each finished chunk to its own
+    `<ckpt>/cols_<lo>_<hi>.npz` (every rank holds the same gathered
+    result) and skipping chunks already present on restart (jobs are
+    re-runnable and idempotent per shard).  On a process grid the skip is
+    the world's decision: a chunk is restored only where every rank holds
+    its file, so ranks with disks of their own that disagree recompute it
+    together and the grid's collectives stay paired chunk for chunk.
 """
 
 from __future__ import annotations
@@ -317,6 +321,33 @@ def _write_run_metadata(checkpoint_dir: str, cfg: Config, meta: dict,
         json.dump(payload, fh, indent=1, default=str)
 
 
+def _restore(ck_path: str, mesh, device) -> bool:
+    """Whether to restore a column chunk from its checkpoint.  Without a
+    process group: whether the file exists.  On a process grid a chunk
+    that is recomputed runs the grid's collectives, so every rank must
+    take the same branch: one all-reduce (MIN) of each rank's 0/1 over
+    the world says whether every rank holds the file."""
+    have = os.path.exists(ck_path)
+    if not mesh.distributed:
+        return have
+    flag = torch.tensor([int(have)], dtype=torch.int32, device=device)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+    return bool(flag.item())
+
+
+def _save_checkpoint(ck_path: str, **arrays) -> None:
+    """Write `ck_path` through a rank-unique temporary name in the same
+    directory, then `os.replace` it into place: ranks that share a disk
+    write the same path, and a reader never sees a half-written file."""
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    tmp = f"{ck_path}.{rank}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as fh:
+        np.savez(fh, **arrays)
+        fh.flush()
+        os.fsync(fh.fileno())
+    os.replace(tmp, ck_path)
+
+
 def run_batch(
     cfg: Config,
     batch: ColumnBatch,
@@ -332,7 +363,10 @@ def run_batch(
     """Run the full spectral sweep for a batch of perturbed columns.
 
     On a process grid every rank calls this with the same arguments and
-    gets the whole result; rank 0 writes the checkpoints."""
+    gets the whole result.  Every rank writes each chunk's checkpoint to
+    its `checkpoint_dir` (which may be one shared directory or one on each
+    host) and restores a chunk only where every rank holds its file;
+    rank 0 writes run_metadata.json."""
     mesh = make_mesh(1) if mesh is None else mesh
     ndata = mesh.shape["data"]
     fn, meta = build_batch_fn(
@@ -359,7 +393,7 @@ def run_batch(
             os.path.join(checkpoint_dir, f"cols_{lo}_{hi}.npz")
             if checkpoint_dir else None
         )
-        if ck_path and os.path.exists(ck_path):
+        if ck_path and _restore(ck_path, mesh, meta["device"]):
             with np.load(ck_path) as z:  # resume: skip finished shards
                 fdir[lo:hi], fdn[lo:hi], fup[lo:hi] = z["fdir"], z["fdn"], z["fup"]
             done += 1
@@ -379,9 +413,10 @@ def run_batch(
         fdir[lo:hi] = a_dir[:m].cpu().numpy()
         fdn[lo:hi] = a_dn[:m].cpu().numpy()
         fup[lo:hi] = a_up[:m].cpu().numpy()
-        if ck_path and rank0:
+        if ck_path:
             os.makedirs(checkpoint_dir, exist_ok=True)
-            np.savez(ck_path, fdir=fdir[lo:hi], fdn=fdn[lo:hi], fup=fup[lo:hi])
+            _save_checkpoint(ck_path, fdir=fdir[lo:hi], fdn=fdn[lo:hi],
+                             fup=fup[lo:hi])
         done += 1
         rate = (done * col_chunk) / max(time.perf_counter() - t_start, 1e-9)
         log.info("chunk %d/%d cols %d-%d done (%.1f cols/s)",

@@ -14,8 +14,8 @@ over a grid of the world's ranks with two axes, as the reference's
 
 Rank r sits at (band r // n_data, data r % n_data), as the reference's
 `devices.reshape(n_band, n // n_band)` places device r.  Each rank
-computes on its own device: `cuda:LOCAL_RANK` on NCCL worlds, the CPU on
-gloo worlds (`rank_device`).
+computes on its own device: on NCCL worlds the card `init_distributed`
+set (`cuda:LOCAL_RANK`), on gloo worlds the CPU (`rank_device`).
 
 The reference's `data_sharding` and `replicated` return JAX
 `NamedSharding`s, placements of one global array over many devices of one
@@ -25,7 +25,11 @@ holds its own tensors), so they have no counterpart here.
 Launch: `torchrun --nproc-per-node N script.py`, the script calling
 `init_distributed(None, world, rank)` from the `WORLD_SIZE` and `RANK`
 torchrun exports, or any launcher with a `tcp://host:port` or `file://`
-coordinator.
+coordinator.  On NCCL a rank's card on its host is `LOCAL_RANK`, which
+torchrun sets; a launcher that does not set it may place only one host's
+worth of ranks (process ids below the host's card count), and any other
+rank refuses to start (`_local_rank`): the launcher alone knows how it
+placed the ranks on the hosts.
 """
 
 from __future__ import annotations
@@ -52,7 +56,8 @@ def init_distributed(coordinator: str | None = None,
     rendezvous (`tcp://host:port`, `file:///path`; None: `env://`, as
     torchrun sets it).  The backend defaults to NCCL when this process
     computes on a CUDA device and gloo on the CPU; on NCCL this process's
-    card is `cuda:LOCAL_RANK` (LOCAL_RANK defaults to `process_id`)."""
+    card is `cuda:LOCAL_RANK` (see `_local_rank` where LOCAL_RANK is
+    unset)."""
     if backend is None and (num_processes is None or num_processes <= 1):
         return
     if backend is None:
@@ -68,17 +73,31 @@ def init_distributed(coordinator: str | None = None,
 
 
 def _local_rank(process_id: int | None) -> int:
-    return int(os.environ.get("LOCAL_RANK", process_id or 0))
+    """This process's card on its host: `LOCAL_RANK` where the launcher
+    sets it.  Without it, `process_id` (0 when None) only where it names a
+    card of this host, as in a world on one host; past the host's cards a
+    ValueError, since only the launcher knows its placement of ranks."""
+    env = os.environ.get("LOCAL_RANK")
+    if env is not None:
+        return int(env)
+    pid = 0 if process_id is None else process_id
+    count = torch.cuda.device_count()
+    if 0 <= pid < count:
+        return pid
+    raise ValueError(
+        f"LOCAL_RANK is unset and process {pid} names no card of this "
+        f"host ({count} CUDA devices): set LOCAL_RANK to this process's "
+        f"card on its host")
 
 
 def rank_device() -> torch.device:
-    """The device this rank computes on: `cuda:LOCAL_RANK` in an NCCL
-    world, the CPU in a gloo world, `dtypes.default_device()` without
-    torch.distributed."""
+    """The device this rank computes on: in an NCCL world the card
+    `init_distributed` set (`torch.cuda.current_device()`), the CPU in a
+    gloo world, `dtypes.default_device()` without torch.distributed."""
     if not dist.is_initialized():
         return default_device()
     if dist.get_backend() == "nccl":
-        return torch.device("cuda", _local_rank(dist.get_rank()))
+        return torch.device("cuda", torch.cuda.current_device())
     return torch.device("cpu")
 
 

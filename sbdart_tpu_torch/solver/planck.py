@@ -1,5 +1,5 @@
-"""Band-averaged Planck function (torch port of sbdart_tpu/solver/planck.py;
-disort.f:PLKAVG).
+"""Band-averaged and total Planck functions (torch port of
+sbdart_tpu/solver/planck.py; disort.f:PLKAVG).
 
     B(T; nu1, nu2) = integral_{nu1}^{nu2} B_nu(T) d nu    [W m^-2 sr^-1]
 
@@ -18,6 +18,7 @@ import math
 import torch
 
 from sbdart_tpu_torch.constants import C2_RADIATION, STEFAN_BOLTZMANN
+from sbdart_tpu_torch.dtypes import default_device
 
 _PI4_15 = 15.0 / math.pi**4
 # Series int_0^x t^3/(e^t-1) dt = x^3 * sum_k a_k x^k  (Bernoulli expansion)
@@ -61,3 +62,13 @@ def planck_band(wvnlo, wvnhi, temp, dtype=torch.float64) -> torch.Tensor:
     frac = _cum_fraction(x2) - _cum_fraction(x1)
     t2 = t * t
     return (STEFAN_BOLTZMANN / math.pi) * (t2 * t2) * frac
+
+
+def planck_total(temp) -> torch.Tensor:
+    """sigma T^4 / pi, the full-spectrum Planck radiance, in float64.  A
+    tensor argument sets the device; any other goes to
+    `dtypes.default_device()`."""
+    dev = temp.device if isinstance(temp, torch.Tensor) else default_device()
+    t = torch.as_tensor(temp, dtype=torch.float64, device=dev)
+    t2 = t * t
+    return (STEFAN_BOLTZMANN / math.pi) * (t2 * t2)

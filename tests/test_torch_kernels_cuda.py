@@ -1063,3 +1063,69 @@ def test_run_batch_world_of_one_nccl_equals_single_run(cuda_device,
     for field in ("fdir", "fdn", "fup"):
         np.testing.assert_array_equal(getattr(grouped, field),
                                       getattr(single, field))
+
+
+@pytest.mark.cuda
+def test_run_batch_nccl_world_of_one_resume_equals_first_run(cuda_device,
+                                                             tmp_path):
+    """The NCCL world of one with a checkpoint directory (chip_smoke's
+    distributed phase): the first run equals the run without a process
+    group to the bit; a resume from every checkpoint, after the agreement
+    collective on NCCL, equals it and launches no kernel; a poisoned file
+    shows; once it is deleted its chunk alone is recomputed, equal again."""
+    import os
+
+    import torch.distributed as dist
+
+    from sbdart_tpu_torch.batch import run_batch
+    from sbdart_tpu_torch.config import Config
+    from sbdart_tpu_torch.kernels.blocktri_n2 import block_thomas_rt_n2
+    from sbdart_tpu_torch.sharding import init_distributed, make_mesh
+
+    kw = dict(band_chunk=8, col_chunk=32, dtype=torch.float32,
+              device=cuda_device)
+    single = run_batch(Config(**BATCH_CFG), _batch(), **kw)
+    ck = str(tmp_path / "ck")
+    first = os.path.join(ck, "cols_0_32.npz")
+    init_distributed(f"file://{tmp_path / 'init'}", 1, 0, backend="nccl")
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = make_mesh(1)
+
+        def run():
+            n0 = block_thomas_rt_n2.launches
+            res = run_batch(Config(**BATCH_CFG), _batch(), mesh=mesh,
+                            checkpoint_dir=ck, **kw)
+            return res, block_thomas_rt_n2.launches - n0
+
+        grouped, n_first = run()
+        resumed, n_resume = run()
+        with np.load(first) as z:
+            arrays = {f: z[f] for f in ("fdir", "fdn", "fup")}
+        np.savez(first, **{**arrays, "fdir": arrays["fdir"] * 0 + 7.0})
+        poisoned, _ = run()
+        os.remove(first)
+        recomputed, n_recompute = run()
+    finally:
+        dist.destroy_process_group()
+    assert n_first > 0 and n_resume == 0 and 2 * n_recompute == n_first
+    np.testing.assert_array_equal(poisoned.fdir[:32], 7.0)
+    np.testing.assert_array_equal(poisoned.fdir[32:], single.fdir[32:])
+    for res in (grouped, resumed, recomputed):
+        for field in ("fdir", "fdn", "fup"):
+            np.testing.assert_array_equal(getattr(res, field),
+                                          getattr(single, field))
+
+
+@pytest.mark.cuda
+def test_local_rank_refuses_past_the_cards(cuda_device, monkeypatch):
+    """Without LOCAL_RANK, a process id names a card only below the real
+    card count; at it, a ValueError."""
+    from sbdart_tpu_torch.sharding import _local_rank
+
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    n = torch.cuda.device_count()
+    assert _local_rank(n - 1) == n - 1
+    with pytest.raises(ValueError, match=f"LOCAL_RANK is unset and process "
+                                         f"{n} names no card"):
+        _local_rank(n)

@@ -5,7 +5,7 @@ cumulative fraction (x = c2 nu / T below and above the switch at 1).
 
   * float64: relative error <= 1e-12 (the two evaluate the same series
     with the same coefficients; only the order of a few roundings may
-    differ);
+    differ), for planck_total (sigma T^4 / pi) too, over 1e-6-1e4 K;
   * float32, the flux path's precision: port and reference within 1e-6
     of the largest band value of each other (measured 1.9e-7 at 190 K,
     3.6e-7 at 290 K), and the port no further from the float64 value than
@@ -21,8 +21,13 @@ import torch
 
 from sbdart_tpu.solver.planck import _cum_fraction as ref_cum_fraction
 from sbdart_tpu.solver.planck import planck_band as ref_planck_band
+from sbdart_tpu.solver.planck import planck_total as ref_planck_total
 from sbdart_tpu_torch.constants import C2_RADIATION
-from sbdart_tpu_torch.solver.planck import _cum_fraction, planck_band
+from sbdart_tpu_torch.solver.planck import (
+    _cum_fraction,
+    planck_band,
+    planck_total,
+)
 
 
 def bands(seed=0, n=400):
@@ -83,3 +88,50 @@ def test_planck_band_f32_matches_reference(temp):
     rel_got = (err_got[big] / truth[big]).max()
     rel_ref = (err_ref[big] / truth[big]).max()
     assert rel_got <= 2.0 * rel_ref + 1e-6, (rel_got, rel_ref)
+
+
+def temperatures(shape, seed=2):
+    """1e-6-1e4 K, log-uniform, so every decade is sampled."""
+    rng = np.random.default_rng(seed)
+    return 10.0 ** rng.uniform(-6.0, 4.0, shape)
+
+
+@pytest.mark.parametrize("shape", [(), (50,), (6, 9)])
+@pytest.mark.parametrize("given", ["tensor", "numpy"])
+def test_planck_total_matches_reference_f64(monkeypatch, shape, given):
+    """sigma T^4 / pi in float64, from a CPU tensor (its device) or from
+    NumPy values under SBDART_TPU_DEVICE=cpu (the default device)."""
+    t = temperatures(shape)
+    if shape == ():
+        t = float(t)
+    ref = np.asarray(ref_planck_total(jnp.asarray(t)))
+    if given == "tensor" and shape == (50,):
+        # float32 in: widened to float64, as the reference widens it
+        ref = np.asarray(ref_planck_total(jnp.asarray(t, jnp.float32)))
+        got = planck_total(torch.tensor(t, dtype=torch.float32))
+    elif given == "tensor":
+        got = planck_total(torch.tensor(t, dtype=torch.float64))
+    else:
+        monkeypatch.setenv("SBDART_TPU_DEVICE", "cpu")
+        got = planck_total(t)
+    assert got.dtype == torch.float64 and got.device.type == "cpu"
+    assert got.shape == ref.shape == np.shape(t)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-12, atol=0.0)
+
+
+def test_planck_total_without_a_card_raises_unless_cpu_asked(monkeypatch):
+    """Plain values go to the default device: without a card and without
+    SBDART_TPU_DEVICE=cpu that raises, as every entry point of the port."""
+    monkeypatch.delenv("SBDART_TPU_DEVICE", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="SBDART_TPU_DEVICE=cpu"):
+        planck_total(288.0)
+
+
+@pytest.mark.parametrize("temp", [200.0, 288.0, 330.0])
+def test_planck_band_over_the_whole_spectrum_closes_on_planck_total(temp):
+    """planck_band(1e-3, 1e7 cm^-1, T) = planck_total(T) to rtol 3e-9, the
+    reference's own bar (tests/test_foundations.py)."""
+    t = torch.tensor(temp, dtype=torch.float64)
+    whole, total = planck_band(1.0e-3, 1.0e7, t), planck_total(t)
+    np.testing.assert_allclose(whole.item(), total.item(), rtol=3e-9)

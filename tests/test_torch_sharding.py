@@ -177,3 +177,46 @@ def test_pad_to_multiple_equals_reference(n, m):
         got, want = pad_to_multiple(a, m, axis), ref_pad(a, m, axis)
         assert got[1] == want[1]
         np.testing.assert_array_equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("local_rank,process_id,count,want", [
+    ("3", 9, 4, 3),         # LOCAL_RANK set: the launcher's word
+    (None, 2, 4, 2),        # unset, a process id of this host's cards
+    (None, None, 1, 0),     # unset, no process id: card 0
+    (None, 4, 4, None),     # unset, past this host's cards: refused
+    (None, 5, 0, None),     # unset, no card at all: refused
+])
+def test_local_rank_takes_launcher_or_refuses(monkeypatch, local_rank,
+                                              process_id, count, want):
+    """A rank's card on its host: LOCAL_RANK where the launcher sets it;
+    without it the process id only where it names a card of this host;
+    otherwise a ValueError naming LOCAL_RANK, the process id and the card
+    count (no guess at how the launcher placed the ranks)."""
+    from sbdart_tpu_torch.sharding import _local_rank
+
+    if local_rank is None:
+        monkeypatch.delenv("LOCAL_RANK", raising=False)
+    else:
+        monkeypatch.setenv("LOCAL_RANK", local_rank)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
+    if want is None:
+        with pytest.raises(ValueError, match=rf"LOCAL_RANK is unset and "
+                           rf"process {process_id} .*\({count} CUDA"):
+            _local_rank(process_id)
+    else:
+        assert _local_rank(process_id) == want
+
+
+def test_rank_device_is_the_card_init_distributed_set(monkeypatch):
+    """On NCCL rank_device returns torch.cuda.current_device()'s card (the
+    one init_distributed set), not one worked out from the global rank."""
+    from sbdart_tpu_torch.sharding import rank_device
+
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_backend", lambda group=None: "nccl")
+    monkeypatch.setattr(dist, "get_rank", lambda group=None: 6)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 2)
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    assert rank_device() == torch.device("cuda", 2)
+    monkeypatch.setattr(dist, "get_backend", lambda group=None: "gloo")
+    assert rank_device() == torch.device("cpu")
