@@ -9,11 +9,14 @@ or, to compare two checkouts on one card (run them in turns, all on the
 same card: parent, change, change, parent), time the BVP and eigen
 kernels of the package in another checkout at this script's shapes:
 
-    python3 chip_smoke.py --ab PATH/TO/CHECKOUT [radsrc,solves,kernels,batch]
+    python3 chip_smoke.py --ab PATH/TO/CHECKOUT [radsrc,solves,kernels,batch,graphs,sweep]
 
 (the optional list picks --ab's groups: B7's rows, the radiance solves'
 breakdowns, the other kernels' rows; all three by default; "batch", only
-when named, times config 5's batch through run_batch)
+when named, times config 5's batch through run_batch; "graphs", likewise,
+the cli configs' pipelines and the batch, replayed where the checkout
+captures them; "sweep", likewise, the device memory over a run of
+config 4 at nstr=32 for each of eight chunk-solver keys)
 
 Phases, one JSON line each; the first failure exits non-zero:
 
@@ -116,7 +119,11 @@ Phases, one JSON line each; the first failure exits non-zero:
               full 0.25-40 um sweep (1989 samples x 3 k-terms x 32
               layers, cloud and aerosol) x 32 solar zeniths x 128
               perturbed columns, in column chunks of 1024 and band chunks
-              of 32 (the Planck source on every chunk: B3, B2), with
+              of 32 (the Planck source on every chunk: B3, B2; every
+              band-chunk solve after the first replayed as one CUDA
+              graph: a "captured" entry with its capture and instantiate
+              seconds, node count and pool bytes, its first two column
+              chunks to the bit from the same chunks run eagerly), with
               columns/s, band-columns/s and one column chunk's device busy
               ms and idle share: fluxes finite, a resume from its
               checkpoints (the last one removed and recomputed) equal to
@@ -139,10 +146,25 @@ Phases, one JSON line each; the first failure exits non-zero:
   7. planck_total  sigma T^4 / pi in float64 on the card over 1e-6-1e4 K
               against NumPy's, relative error <= 1e-12.
 
+Captured solves (sbdart_tpu_torch/ops/graph.py): after each solve line of
+phase 4, a "graph" line for the same cell.  Where ops/graph.py's rule
+admits the route, the solve (its eager run the captured call's warm-up)
+is captured and replayed on the same inputs and then on fresh ones (the
+cell at seed 1) against a fresh eager solve, each to the bit, NaN
+positions too; the replays must move the launch counters of the cell's
+kernels; the line gives the eager and replayed wall (CUDA events),
+device busy and idle share (profiler), the graph's node count, capture
+and instantiate seconds and pool bytes.  Where the rule leaves it eager
+(G10), "graph": false and the reason.  Each cli line of phase 5 adds
+"graph" (the rule's verdict), "graph_rel_err" (api.run's result, every
+chunk replayed where captured, against the same run with capture ruled
+out: 0.0 on every field) and the eager run's seconds.
+
 Kernel launch counters are zeroed just before each run of phases 4 to
 6 and read just after it: each kernel must have been launched by the runs
-whose path holds it; B5's launches on phases 4 to 6 are also counted by
-shape (an "rt_shapes" line).  Then come the run's seconds (in all, the kernel
+whose path holds it (a replay adds what its capture counted); B5's eager
+launches on phases 4 to 6 are also counted by shape (an "rt_shapes"
+line).  Then come the run's seconds (in all, the kernel
 phase, each main-path phase), the kernels summary, the nvidia-smi line,
 and as the last line {"ok": true, "device": {...}}.  Without a CUDA
 device the script fails.
@@ -161,6 +183,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
@@ -332,13 +355,14 @@ def device_ms(fn, reps: int, match: str | None = None) -> float | None:
     return sum(us) / reps / 1e3 if us else None
 
 
-def device_breakdown(fn, reps: int) -> dict:
+def device_breakdown(fn, reps: int, warmup: bool = True) -> dict:
     """Per call of fn(): device ms in all, in each of the port's kernels
     (by its __global__ name) and in the rest (the torch glue), the number
     of device operations, and the copies among them (COPY_OPS: their
     count and device ms), from torch.profiler (None where it reported no
-    device work)."""
-    ev = device_events(fn, reps)
+    device work); after one call outside the profiler unless `warmup` is
+    false."""
+    ev = device_events(fn, reps, warmup=warmup)
     if not ev:
         return {"device_busy_ms": None, "kernel_device_ms": None,
                 "glue_device_ms": None, "device_ops_per_solve": None,
@@ -1578,27 +1602,255 @@ def phase_kernels_far(device):
     return summary
 
 
-def phase_generic(device, reps, name, bvp_method="auto", bar=E2E_BAR):
-    """solve_rte on the generic path in float32 through the kernels
-    against its plain path on the card, at one of GENERIC's shapes: the
-    fluxes (and uu where asked) within `bar` of each field's max (0.0: the
-    same numbers), timed.  `bvp_method` "scan" takes the assembled-block
-    route (B10)."""
+RADIANCE_CELLS = {
+    "nstr16-rad-65L/256": dict(nbc=NBC_RAD16, nlyr=NLYR16, nstr=16),
+    "nstr16-rad-65L/2048": dict(nbc=NBC16, nlyr=NLYR16, nstr=16),
+    "nstr4-rad-33L": dict(nbc=4096, nlyr=NLYR, nstr=4),
+    "nstr8-brdf-thermal-33L": dict(nbc=512, nlyr=NLYR, nstr=8, planck=True,
+                                   brdf=True),
+}
+
+
+FLUX_CELLS = {   # name: (nstr, band-columns, layers, Planck)
+    "nstr4-flux-33L": (4, NBC, NLYR, False),
+    "nstr16-flux-65L": (16, NBC16, NLYR16, False),
+    "nstr4-thermal-33L": (4, NBC, NLYR, True),
+    "nstr4-flux-65L": (4, NBC, 65, False),
+}
+
+
+def solve_cell(name, device, seed=0, small=False):
+    """The solve_rte request of one cell of PERF.md section 4 (FLUX_CELLS,
+    RADIANCE_CELLS, GENERIC; a "-scan" suffix asks for bvp_method "scan"),
+    from `seed`: (route, nstr, (dtau, ssalb, pmom), the keywords of the
+    float32 kernel path).  `small` cuts the band-columns to 64 at most
+    (the card's tests)."""
     import torch
 
+    from sbdart_tpu_torch.solver.disort import route
+
+    base = name.removesuffix("-scan")
+    extra = dict(bvp_method="scan" if name.endswith("-scan") else "auto",
+                 eig_method="auto", dtype=torch.float32)
+    if base in FLUX_CELLS:
+        nstr, nbc, nlyr, planck = FLUX_CELLS[base]
+        prob = flux_problem(min(nbc, 64) if small else nbc, NK, nlyr, device,
+                            seed=seed, nmom=nstr + 1, planck=planck)
+        args = (prob.pop("dtau"), prob.pop("ssalb"), prob.pop("pmom"))
+        kw = dict(nstr=nstr, onlyfl=True, **prob)
+    elif base in RADIANCE_CELLS:
+        cell = dict(RADIANCE_CELLS[base])
+        if small:
+            cell["nbc"] = min(cell["nbc"], 64)
+        args, kw = radiance_problem(device=device, seed=seed, **cell)
+    else:
+        nstr, nbc, nlyr, pkw = GENERIC[base]
+        args, kw = generic_problem(min(nbc, 64) if small else nbc, NK, nlyr,
+                                   device, nstr=nstr, seed=seed, **pkw)
+    kw.update(extra)
+    path = route(nstr=kw["nstr"], onlyfl=kw["onlyfl"], brdf=kw.get("brdf"),
+                 umu=kw.get("umu"), phi=kw.get("phi"))
+    return path, kw["nstr"], args, kw
+
+
+def captured_solve(args, kw, inputs_only=False):
+    """solve_rte on (args, kw) as an ops/graph.py:CapturedCall, its inputs
+    the tensors among them (the rest static), captured where the rule
+    admits the request: (call, inputs), or the inputs alone."""
+    import torch
+
+    from sbdart_tpu_torch.ops.graph import CapturedCall, graph_ok
     from sbdart_tpu_torch.solver.disort import route, solve_rte
 
-    nstr, nbc, nlyr, pkw = GENERIC[name]
-    args, kw = generic_problem(nbc, NK, nlyr, device, nstr=nstr, **pkw)
-    if route(nstr=nstr, onlyfl=kw["onlyfl"], brdf=kw.get("brdf"),
-             umu=kw.get("umu"), phi=kw.get("phi")) != "generic":
+    inputs = dict(zip(("dtauc", "ssalb", "pmom"), args))
+    inputs.update((k, v) for k, v in kw.items()
+                  if isinstance(v, torch.Tensor))
+    if inputs_only:
+        return inputs
+    static = {k: v for k, v in kw.items() if k not in inputs}
+    path = route(nstr=kw["nstr"], onlyfl=kw["onlyfl"], brdf=kw.get("brdf"),
+                 umu=kw.get("umu"), phi=kw.get("phi"))
+    capture = graph_ok(path, kw["nstr"], kw.get("dtype", torch.float32),
+                       args[0].device)
+    return CapturedCall(lambda **x: solve_rte(**x, **static),
+                        capture=capture), inputs
+
+
+def eager_solve(args, kw):
+    """solve_rte on (args, kw), eagerly on the current stream."""
+    from sbdart_tpu_torch.solver.disort import solve_rte
+
+    return solve_rte(*args, **kw)
+
+
+@contextlib.contextmanager
+def eager_only():
+    """run_pipeline and build_batch_fn with capture ruled out (graph_ok
+    false in both modules), and _captured_solver's cache emptied on the way
+    in and out: the eager runs the captured ones are held to."""
+    from sbdart_tpu_torch import batch, pipeline
+
+    saved = pipeline.graph_ok, batch.graph_ok
+    pipeline._captured_solver.cache_clear()
+    pipeline.graph_ok = batch.graph_ok = lambda *a: False
+    try:
+        yield
+    finally:
+        pipeline.graph_ok, batch.graph_ok = saved
+        pipeline._captured_solver.cache_clear()
+
+
+@contextlib.contextmanager
+def recording_calls(module):
+    """The CapturedCalls `module` (pipeline or batch) makes meanwhile, in
+    a list."""
+    from sbdart_tpu_torch.ops.graph import CapturedCall
+
+    made = []
+
+    class Recording(CapturedCall):
+        def __init__(self, fn, *, capture):
+            super().__init__(fn, capture=capture)
+            made.append(self)
+
+    saved = module.CapturedCall
+    module.CapturedCall = Recording
+    try:
+        yield made
+    finally:
+        module.CapturedCall = saved
+
+
+def bit_diff(got, want) -> tuple[float, bool]:
+    """(max |got - want| / max |want| over the finite elements, whether
+    the NaN positions agree): (0.0, True) is equality to the bit."""
+    import numpy as np
+    import torch
+
+    g = got.detach().double().cpu().numpy() if isinstance(
+        got, torch.Tensor) else np.asarray(got, np.float64)
+    w = want.detach().double().cpu().numpy() if isinstance(
+        want, torch.Tensor) else np.asarray(want, np.float64)
+    nan_ok = g.shape == w.shape and bool(np.array_equal(np.isnan(g),
+                                                        np.isnan(w)))
+    if not nan_ok:
+        return float("inf"), False
+    fin = ~np.isnan(w)
+    if not fin.any():
+        return 0.0, True
+    scale = max(float(np.abs(w[fin]).max()), 1e-300)
+    return float(np.abs(g[fin] - w[fin]).max()) / scale, True
+
+
+def outputs_diff(got, want) -> dict:
+    """bit_diff of each field of two RteOutputs (or SpectralResults):
+    {field: rel_err}, NaN positions that disagree as inf."""
+    out = {}
+    for f in ("rfldir", "rfldn", "flup", "dfdt", "uavg", "uu", "fdir",
+              "fdn", "fup"):
+        a, b = getattr(got, f, None), getattr(want, f, None)
+        if a is None and b is None:
+            continue
+        if (a is None) != (b is None):
+            out[f] = float("inf")
+            continue
+        err, nan_ok = bit_diff(a, b)
+        out[f] = err if nan_ok else float("inf")
+    return out
+
+
+def graph_check(cell, path, nstr, call, inputs, eager, rec, reps, owned,
+                reason):
+    """One cell's "graph" line.  Where the rule leaves the route eager
+    (`reason`): "graph": false and the reason.  Else `call` (its eager
+    warm-up done, giving `eager`) captures and replays on the same inputs,
+    then replays fresh inputs (the cell at seed 1) against a fresh eager
+    solve, both to the bit, NaN positions too; the replays must move the
+    launch counters of the kernels in `owned`; then the replay's wall
+    (CUDA events) and device busy (profiler) beside the eager solve's
+    (`rec`, the cell's solve line), the graph's node count, its capture
+    and instantiate seconds and its pool's bytes."""
+    import torch
+
+    from sbdart_tpu_torch.ops.graph import launch_counters
+
+    if reason is not None:
+        emit({"phase": "graph", "cell": cell, "route": path, "nstr": nstr,
+              "graph": False, "reason": reason})
+        return
+    counters = {f.__name__: f for f in launch_counters()}
+    before = {k: f.launches for k, f in counters.items()}
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    got = call(inputs)                      # capture, instantiate, replay
+    torch.cuda.synchronize()
+    same = outputs_diff(got, eager)
+    del got, eager
+    moved = {k: f.launches - before[k] for k, f in counters.items()
+             if f.launches != before[k]}
+    names = {KERNELS[k][1]: k for k in KERNELS}
+    missed = [k for k in owned if KERNELS[k][1] not in moved]
+    _, _, f_args, f_kw = solve_cell(cell, inputs["dtauc"].device, seed=1)
+    want = eager_solve(f_args, f_kw)
+    start.record()
+    got = call(captured_solve(f_args, f_kw, inputs_only=True))
+    stop.record()
+    stop.synchronize()
+    fresh = outputs_diff(got, want)
+    del got, want, f_args, f_kw
+    if reps > 1:
+        r_ms = timed_ms(lambda: call(inputs), reps, warmup=1)
+    else:
+        r_ms = start.elapsed_time(stop)
+    busy = device_ms(lambda: call(inputs), max(1, reps // 2))
+    e_ms, e_busy = rec["kernel_path_ms"], rec["kernel_path_device_busy_ms"]
+    out = {"phase": "graph", "cell": cell, "route": path, "nstr": nstr,
+           "graph": True, "rel_err": same, "fresh_rel_err": fresh,
+           "bar": 0.0, "eager_ms": e_ms, "replay_ms": r_ms,
+           "eager_device_busy_ms": e_busy, "replay_device_busy_ms": busy,
+           "eager_idle_share": (None if e_busy is None
+                                else max(0.0, 1.0 - e_busy / e_ms)),
+           "replay_idle_share": (None if busy is None
+                                 else max(0.0, 1.0 - busy / r_ms)),
+           "nodes": call.node_count(), "capture_s": call.capture_s,
+           "instantiate_s": call.instantiate_s,
+           "pool_bytes": call.pool_bytes,
+           "replay_launches": {names.get(k, k): v for k, v in moved.items()}}
+    emit(out)
+    del call
+    torch.cuda.empty_cache()
+    bad = {k: v for k, v in {**same, **{f"fresh_{k}": v for k, v in
+                                         fresh.items()}}.items() if v != 0.0}
+    if bad:
+        raise SmokeFailure(f"graph {cell}: replay differs from eager {bad}")
+    if missed:
+        raise SmokeFailure(f"graph {cell}: the replay launched none of "
+                           f"{missed}")
+
+
+def phase_generic(device, reps, name, bar=E2E_BAR, owned=()):
+    """solve_rte on the generic path in float32 through the kernels
+    against its plain path on the card, at one of GENERIC's shapes (a
+    "-scan" name: bvp_method "scan", the assembled-block route, B10): the
+    fluxes (and uu where asked) within `bar` of each field's max (0.0: the
+    same numbers), timed; then the same solve captured and replayed where
+    the rule admits it (`graph_check`)."""
+    import torch
+
+    from sbdart_tpu_torch.ops.graph import eager_reason
+    from sbdart_tpu_torch.solver.disort import solve_rte
+
+    path, nstr, args, kw = solve_cell(name, device)
+    if path != "generic":
         raise SmokeFailure(f"{name}: not a generic-path request")
+    nbc, _, nlyr = args[0].shape
+    bvp_method = kw["bvp_method"]
+    call, inputs = captured_solve(args, kw)
 
     def run(method):
-        return solve_rte(*args, eig_method=method, bvp_method=bvp_method,
-                         dtype=torch.float32, **kw)
+        return solve_rte(*args, **dict(kw, eig_method=method))
 
-    out_k = run("auto")
+    out_k = call(inputs)            # the eager warm-up where it is captured
     out_p = run("plain")
     errs = {}
     fields = ("rfldn", "flup", "uavg", "dfdt")
@@ -1616,13 +1868,14 @@ def phase_generic(device, reps, name, bvp_method="auto", bar=E2E_BAR):
         raise SmokeFailure(f"{name}: uu {out_k.uu is not None}")
     worst = max(errs[f] for f in fields)
     # reps = 1 (the solves past N = 8, seconds each): the runs above were
-    # the warm-up, one timed run of each path, one profiled
+    # the warm-ups; one timed run of each path follows, and one profiled
     k_ms = timed_ms(lambda: run("auto"), reps, warmup=2 if reps > 1 else 0)
     p_ms = timed_ms(lambda: run("plain"), min(2, reps), warmup=0)
     dev = device_breakdown(lambda: run("auto"),
-                           max(2, reps // 2) if reps > 1 else 1)
+                           max(2, reps // 2) if reps > 1 else 1,
+                           warmup=reps > 1)
     busy_ms = dev["device_busy_ms"]
-    rec = {"phase": "solve", "kind": "generic", "cell": name,
+    rec = {"phase": "solve", "kind": "generic", "cell": name.split("-")[0],
            "bvp_method": bvp_method, "nstr": nstr,
            "onlyfl": kw["onlyfl"], "angles": "umu" in kw,
            "planck": bool(kw.get("planck")),
@@ -1642,25 +1895,31 @@ def phase_generic(device, reps, name, bvp_method="auto", bar=E2E_BAR):
     if worst > bar:
         raise SmokeFailure(f"{name}: kernel vs plain path {worst:.3g} > "
                            f"{bar}")
+    del out_p
+    graph_check(name, path, nstr, call, inputs, out_k, rec, reps, owned,
+                eager_reason(path, nstr, kw["dtype"], device))
     return rec
 
 
-def phase_radiance(device, reps, *, nstr, nbc, nlyr, planck=False,
-                   brdf=False):
+def phase_radiance(device, reps, cell, owned=()):
     """solve_rte(onlyfl=False) through the kernels against the plain path
-    on the card, timed: uu and the fluxes within 5e-4 of each field's
-    max."""
+    on the card at one of RADIANCE_CELLS, timed: uu and the fluxes within
+    5e-4 of each field's max; then the same solve captured and replayed
+    (`graph_check`)."""
     import torch
 
+    from sbdart_tpu_torch.ops.graph import eager_reason
     from sbdart_tpu_torch.solver.disort import solve_rte
 
-    args, kw = radiance_problem(nbc, nlyr, device, nstr=nstr, planck=planck,
-                                brdf=brdf)
+    path, nstr, args, kw = solve_cell(cell, device)
+    nbc, nlyr = args[0].shape
+    planck, brdf = bool(kw.get("planck")), "brdf" in kw
+    call, inputs = captured_solve(args, kw)
 
     def run(method):
-        return solve_rte(*args, eig_method=method, dtype=torch.float32, **kw)
+        return solve_rte(*args, **dict(kw, eig_method=method))
 
-    out_k = run("auto")
+    out_k = call(inputs)            # the eager warm-up of the captured call
     out_p = run("plain")
     errs = {}
     for name in ("uu", "rfldir", "rfldn", "flup", "uavg", "dfdt"):
@@ -1676,7 +1935,7 @@ def phase_radiance(device, reps, *, nstr, nbc, nlyr, planck=False,
     p_ms = timed_ms(lambda: run("plain"), 2, warmup=0)
     dev = device_breakdown(lambda: run("auto"), max(2, reps // 2))
     busy_ms = dev["device_busy_ms"]
-    rec = {"phase": "solve", "kind": "radiance", "nstr": nstr,
+    rec = {"phase": "solve", "kind": "radiance", "cell": cell, "nstr": nstr,
            "planck": planck, "brdf": "hapke" if brdf else None,
            "band_columns": nbc, "layers": nlyr, "umu": list(UMU_VIEW),
            "phi": list(PHI_VIEW), "dtype": "float32", "rel_err": errs,
@@ -1695,23 +1954,30 @@ def phase_radiance(device, reps, *, nstr, nbc, nlyr, planck=False,
     if worst > E2E_BAR:
         raise SmokeFailure(f"radiance nstr={nstr}: kernel vs plain path "
                            f"{worst:.3g} > {E2E_BAR}")
+    del out_p
+    graph_check(cell, path, nstr, call, inputs, out_k, rec, reps, owned,
+                eager_reason(path, nstr, kw["dtype"], device))
     return rec
 
 
-def phase_solve(device, reps, *, nstr=4, nbc=NBC, nlyr=NLYR, planck=False):
-    """solve_rte through the kernels against the plain path, timed."""
+def phase_solve(device, reps, cell, owned=()):
+    """solve_rte through the kernels against the plain path at one of
+    FLUX_CELLS, timed, then the same solve captured and replayed
+    (`graph_check`)."""
     import torch
 
+    from sbdart_tpu_torch.ops.graph import eager_reason
     from sbdart_tpu_torch.solver.disort import solve_rte
 
-    prob = flux_problem(nbc, NK, nlyr, device, nmom=nstr + 1, planck=planck)
-    args = (prob.pop("dtau"), prob.pop("ssalb"), prob.pop("pmom"))
-    kw = dict(nstr=nstr, onlyfl=True, dtype=torch.float32, **prob)
+    path, nstr, args, kw = solve_cell(cell, device)
+    nbc, _, nlyr = args[0].shape
+    planck = bool(kw.get("planck"))
+    call, inputs = captured_solve(args, kw)
 
     def run(method):
-        return solve_rte(*args, eig_method=method, **kw)
+        return solve_rte(*args, **dict(kw, eig_method=method))
 
-    out_k = run("auto")
+    out_k = call(inputs)            # the eager warm-up of the captured call
     out_p = run("plain")
     errs = {}
     for name in ("rfldir", "rfldn", "flup", "uavg", "dfdt"):
@@ -1727,7 +1993,7 @@ def phase_solve(device, reps, *, nstr=4, nbc=NBC, nlyr=NLYR, planck=False):
     p_ms = timed_ms(lambda: run("plain"), max(3, reps // 2), warmup=1)
     dev = device_breakdown(lambda: run("auto"), reps)
     busy_ms = dev["device_busy_ms"]
-    rec = {"phase": "solve", "nstr": nstr, "planck": planck,
+    rec = {"phase": "solve", "cell": cell, "nstr": nstr, "planck": planck,
            "band_columns": nbc, "k_terms": NK,
            "layers": nlyr, "dtype": "float32", "rel_err": errs,
            "bar": E2E_BAR, "kernel_path_ms": k_ms, "plain_path_ms": p_ms,
@@ -1743,6 +2009,9 @@ def phase_solve(device, reps, *, nstr=4, nbc=NBC, nlyr=NLYR, planck=False):
     if worst > E2E_BAR:
         raise SmokeFailure(f"solve nstr={nstr} planck={planck}: kernel vs "
                            f"plain path {worst:.3g} > {E2E_BAR}")
+    del out_p
+    graph_check(cell, path, nstr, call, inputs, out_k, rec, reps, owned,
+                eager_reason(path, nstr, kw["dtype"], device))
     return rec
 
 
@@ -1782,12 +2051,63 @@ def closure(res):
             / integrate_spectral(res, s["botdn"]))
 
 
+@contextlib.contextmanager
+def pipeline_calls():
+    """The chunk solvers run_pipeline makes meanwhile (recording_calls)."""
+    from sbdart_tpu_torch import pipeline
+
+    with recording_calls(pipeline) as made:
+        yield made
+
+
+def pipeline_graph_check(cfg, res, made) -> dict:
+    """`res`, api.run's result for `cfg` (run_pipeline through its cached
+    chunk solver: every chunk replayed where the rule captures it), against
+    the same run with capture ruled out, to the bit: the keys a cli line
+    adds ("graph", its reason where the rule leaves the route eager,
+    "graph_rel_err" per field, the eager run's seconds, and for each chunk
+    solver in `made` its calls, replays, node count, capture and
+    instantiate seconds and pool bytes)."""
+    from sbdart_tpu_torch.api import run
+    from sbdart_tpu_torch.dtypes import (
+        default_device, default_dtype, parse_dtype)
+    from sbdart_tpu_torch.ops.graph import eager_reason
+    from sbdart_tpu_torch.pipeline import user_angles
+    from sbdart_tpu_torch.solver.disort import route
+
+    umu, phi = user_angles(cfg)
+    path = route(nstr=cfg.nstr, onlyfl=umu is None, brdf=None, umu=umu,
+                 phi=phi)
+    device = default_device()
+    dtype = parse_dtype(cfg.dtype) if cfg.dtype else default_dtype(device)
+    reason = eager_reason(path, cfg.nstr, dtype, device)
+    t0 = time.perf_counter()
+    with eager_only():
+        want = run(cfg)
+    return {"graph": reason is None, "graph_reason": reason,
+            "graph_rel_err": outputs_diff(res, want),
+            "eager_seconds": time.perf_counter() - t0,
+            "chunk_solvers": [
+                {"calls": c.calls, "replays": c.replays,
+                 "nodes": c.node_count() if c.graph else None,
+                 "capture_s": c.capture_s, "instantiate_s": c.instantiate_s,
+                 "pool_bytes": c.pool_bytes} for c in made]}
+
+
+def graph_gate(rec, what):
+    """Raise where a cli line's replayed run differs from its eager run."""
+    bad = {k: v for k, v in rec["graph_rel_err"].items() if v != 0.0}
+    if bad:
+        raise SmokeFailure(f"{what}: replayed run differs from eager {bad}")
+
+
 def phase_cli():
     """The sbdart CLI on BASELINE config 1, and the surface closure."""
     from sbdart_tpu_torch.api import run
     from sbdart_tpu_torch.outputs import format_iout
 
-    cfg, text, cli_s = run_cli(INPUT_C1)
+    with pipeline_calls() as made:
+        cfg, text, cli_s = run_cli(INPUT_C1)
     _, _, _, topdn, topup, _, _, _, _ = iout10_values(text, "cli config 1")
     if not 0.0 < topup / topdn < 1.0:
         raise SmokeFailure(f"cli: topup/topdn = {topup / topdn}")
@@ -1799,8 +2119,10 @@ def phase_cli():
            "iout10": text.strip(),
            "wavelengths": int(len(res.wl)), "seconds": cli_s,
            "topup_over_topdn": topup / topdn,
-           "botup_over_botdn": ratio, "albcon": cfg.albcon}
+           "botup_over_botdn": ratio, "albcon": cfg.albcon,
+           **pipeline_graph_check(cfg, res, made)}
     emit(rec)
+    graph_gate(rec, "cli config 1")
     if abs(ratio - cfg.albcon) > 1e-5:
         raise SmokeFailure(f"cli: botup/botdn = {ratio} != albcon")
     return rec
@@ -1814,7 +2136,8 @@ def phase_cli_config2():
     from sbdart_tpu_torch.outputs import (
         format_iout, integrate_spectral, summary_fluxes)
 
-    cfg, text, cli_s = run_cli(INPUT_C2)
+    with pipeline_calls() as made:
+        cfg, text, cli_s = run_cli(INPUT_C2)
     vals = [float(v) for ln in text.splitlines() if not ln.startswith('"')
             for v in ln.split()]
     if not vals or not all(math.isfinite(v) for v in vals):
@@ -1835,8 +2158,10 @@ def phase_cli_config2():
            "olr_w_m2": o32, "olr_f64_plain_w_m2": o64,
            "olr_rel_err": abs(o32 - o64) / abs(o64), "bar": OLR_BAR,
            "f64_plain_seconds": f64_s,
-           "iout11_head": text.splitlines()[:3]}
+           "iout11_head": text.splitlines()[:3],
+           **pipeline_graph_check(cfg, res, made)}
     emit(rec)
+    graph_gate(rec, "cli config 2")
     if not (math.isfinite(o32) and o32 > 0.0):
         raise SmokeFailure(f"cli config 2: OLR {o32}")
     if rec["olr_rel_err"] > OLR_BAR:
@@ -1852,11 +2177,13 @@ def phase_cli_config3():
     from sbdart_tpu_torch.outputs import format_iout
     from sbdart_tpu_torch.solar import spectral_grid
 
-    cfg, text, cli_s = run_cli(INPUT_C3.format(wlinf=0.25, wlsup=40.0))
-    vals = iout10_values(text, "cli config 3")
-    t0 = time.perf_counter()
-    res_sw = run(loads_namelist(INPUT_C3.format(wlinf=0.25, wlsup=2.0)))
-    sw_s = time.perf_counter() - t0
+    with pipeline_calls() as made:
+        cfg, text, cli_s = run_cli(INPUT_C3.format(wlinf=0.25, wlsup=40.0))
+        vals = iout10_values(text, "cli config 3")
+        cfg_sw = loads_namelist(INPUT_C3.format(wlinf=0.25, wlsup=2.0))
+        t0 = time.perf_counter()
+        res_sw = run(cfg_sw)
+        sw_s = time.perf_counter() - t0
     text_sw = format_iout(res_sw)
     iout10_values(text_sw, "cli config 3 (solar part)")
     ratio = closure(res_sw)
@@ -1865,8 +2192,10 @@ def phase_cli_config3():
            "wavelengths": len(spectral_grid(cfg)), "seconds": cli_s,
            "topup_w_m2": vals[4], "solar_part_iout10": text_sw.strip(),
            "solar_part_seconds": sw_s,
-           "solar_part_botup_over_botdn": ratio, "albcon": cfg.albcon}
+           "solar_part_botup_over_botdn": ratio, "albcon": cfg.albcon,
+           **pipeline_graph_check(cfg_sw, res_sw, made)}
     emit(rec)
+    graph_gate(rec, "cli config 3")
     if abs(ratio - cfg.albcon) > 1e-5:
         raise SmokeFailure(f"cli config 3: botup/botdn = {ratio} != albcon")
     return rec
@@ -1890,7 +2219,8 @@ def phase_cli_config4(nstr=16):
     from sbdart_tpu_torch.namelist import loads_namelist
     from sbdart_tpu_torch.outputs import format_iout, integrate_spectral
 
-    cfg, text, cli_s = run_cli(INPUT_C4.format(iaer=1, nstr=nstr))
+    with pipeline_calls() as made:
+        cfg, text, cli_s = run_cli(INPUT_C4.format(iaer=1, nstr=nstr))
     res = run(cfg)
     if format_iout(res) != text:
         raise SmokeFailure("cli config 4: text differs from api.run's")
@@ -1916,8 +2246,10 @@ def phase_cli_config4(nstr=16):
            "bar": OLR_BAR,
            "f64_plain_seconds": f64_s,
            "toa_mean_radiance": toa_mean(res),
-           "toa_mean_radiance_no_aerosol": toa_mean(clean)}
+           "toa_mean_radiance_no_aerosol": toa_mean(clean),
+           **pipeline_graph_check(cfg, res, made)}
     emit(rec)
+    graph_gate(rec, f"cli config 4 (nstr={nstr})")
     if not (np.isfinite(uu).all() and np.isfinite(uu64).all()):
         raise SmokeFailure("cli config 4: non-finite radiances")
     if rec["uu_f64_min"] < -1e-9:
@@ -2036,14 +2368,24 @@ def phase_batch(device):
     from sbdart_tpu_torch.pipeline import run_pipeline
     from sbdart_tpu_torch.solar import spectral_grid
 
+    from sbdart_tpu_torch import batch as batch_mod
+
     cfg = loads_namelist(INPUT_C5.format(wlsup=40.0, nothrm=-1)).validate()
     batch = c5_batch()
     n, nwl = len(batch), len(spectral_grid(cfg))
     kw = dict(band_chunk=C5_BAND_CHUNK, col_chunk=C5_COL_CHUNK, device=device)
     with tempfile.TemporaryDirectory() as ck:
-        t0 = time.perf_counter()
-        res = run_batch(cfg, batch, checkpoint_dir=ck, **kw)
-        wall = time.perf_counter() - t0
+        with recording_calls(batch_mod) as made:
+            t0 = time.perf_counter()
+            res = run_batch(cfg, batch, checkpoint_dir=ck, **kw)
+            wall = time.perf_counter() - t0
+        (call,) = made
+        graph = {"graph": call.capture, "band_chunk_solves": call.calls,
+                 "replays": call.replays, "capture_s": call.capture_s,
+                 "instantiate_s": call.instantiate_s,
+                 "pool_bytes": call.pool_bytes,
+                 "nodes": call.node_count() if call.graph else None}
+        del call, made
         lo = (n - 1) // C5_COL_CHUNK * C5_COL_CHUNK
         os.remove(os.path.join(ck, f"cols_{lo}_{n}.npz"))
         out = []
@@ -2051,6 +2393,16 @@ def phase_batch(device):
             cfg, batch, checkpoint_dir=ck, **kw)), 1, warmup=False,
             cpu=False)
         resumed = out[0]
+    # the replayed band-chunk solves against the same run eagerly, on the
+    # first two column chunks
+    two = slice(0, 2 * C5_COL_CHUNK)
+    t0 = time.perf_counter()
+    with eager_only():
+        eager = run_batch(cfg, c5_columns(batch, two), **kw)
+    graph.update(eager_seconds_two_chunks=time.perf_counter() - t0,
+                 rel_err=outputs_diff(
+                     SimpleNamespace(**{f: getattr(res, f)[two] for f in
+                                        ("fdir", "fdn", "fup")}), eager))
     z = C5_PIPELINE_COLUMN
     sza = float(np.rad2deg(np.arccos(batch.csza[z])))
     ref = run_pipeline(cfg.replace(sza=sza))
@@ -2094,8 +2446,13 @@ def phase_batch(device):
            "f64_fdn_min_over_max": float(r64.fdn.min()
                                          / np.abs(r64.fdn).max()),
            "f32_vs_f64": f32_vs_f64, "f64_bar": OLR_BAR,
-           "f64_plain_seconds": f64_s}
+           "f64_plain_seconds": f64_s, "captured": graph}
     emit(rec)
+    bad = {k: v for k, v in graph["rel_err"].items() if v != 0.0}
+    if bad or not graph["graph"] or graph["replays"] < 1:
+        raise SmokeFailure(f"batch: replayed column chunks vs eager {bad}, "
+                           f"graph {graph['graph']}, {graph['replays']} "
+                           "replays")
     fields = (res.fdir, res.fdn, res.fup)
     if not all(np.isfinite(f).all() and f.shape == (n, 33) for f in fields):
         raise SmokeFailure("batch: non-finite or misshapen fluxes")
@@ -2380,16 +2737,22 @@ def sass_summary(lib, match):
 
 @contextlib.contextmanager
 def rt_shape_tally():
-    """Count B5's launches on the main path by shape: {(layers, N,
-    columns): calls of block_thomas_rt through solve_bvp}."""
+    """Count B5's eager launches on the main path by shape: {(layers, N,
+    columns): calls of block_thomas_rt through solve_bvp outside a CUDA
+    graph capture} (a replay calls no wrapper: its launches are in the
+    kernels summary, not by shape)."""
+    import torch
+
     from sbdart_tpu_torch.kernels import blocktri_rt_streamed as b6
 
     tally = {}
     wrapper = b6.block_thomas_rt
 
     def counted(gp, *rest):
-        key = tuple(int(x) for x in (gp.shape[0], gp.shape[1], gp.shape[-1]))
-        tally[key] = tally.get(key, 0) + 1
+        if not torch.cuda.is_current_stream_capturing():
+            key = tuple(int(x)
+                        for x in (gp.shape[0], gp.shape[1], gp.shape[-1]))
+            tally[key] = tally.get(key, 0) + 1
         return wrapper(gp, *rest)
 
     b6.block_thomas_rt = counted
@@ -2432,9 +2795,10 @@ def main() -> int:
           "ptxas": ptxas, "sass": sass_summary(path, "radsrc")})
 
     t0 = time.perf_counter()
-    summary = phase_kernels(device, reps=20)
-    for part in (phase_kernels_general(device, reps=20),
-                 phase_kernels_radiance(device, reps=20),
+    # 10 launches a CUDA graph for the main shapes' kernel times
+    summary = phase_kernels(device, reps=10)
+    for part in (phase_kernels_general(device, reps=10),
+                 phase_kernels_radiance(device, reps=10),
                  phase_kernels_bvp_n2(device, reps=10),
                  phase_kernels_fwd_rule(device, reps=5),
                  phase_kernels_bwd_rule(device, reps=5),
@@ -2450,59 +2814,56 @@ def main() -> int:
         k: getattr(importlib.import_module(f"sbdart_tpu_torch.kernels.{m}"), f)
         for k, (m, f, _, _, _) in KERNELS.items()
     }
+    def cell(phase, *a, owned, **k):
+        """A solve cell's phase, given the kernels its path runs."""
+        return (lambda: phase(device, *a, owned=owned, **k)), owned
+
     owners = [   # each phase of the main path and the kernels it runs
-        (lambda: phase_solve(device, reps=10),
-         ("eig_n2_deltam", "blocktri_rt_n2")),
-        (lambda: phase_solve(device, reps=10, nstr=16, nbc=NBC16,
-                             nlyr=NLYR16),
-         ("eig_beam", "blocktri_rt_fwd_group", "blocktri_rt_bwd_group")),
-        (lambda: phase_solve(device, reps=10, planck=True),
-         ("eig_n2_scatter", "blocktri_rt_n2")),
-        (lambda: phase_solve(device, reps=10, nlyr=65),
-         ("eig_n2_deltam", rt_kernel(2))),
-        (lambda: phase_radiance(device, reps=10, nstr=4, nbc=4096,
-                                nlyr=NLYR),
-         ("eig_n2_planar", "blocktri_rt_n2", "radsrc")),
-        (lambda: phase_radiance(device, reps=10, nstr=16, nbc=NBC_RAD16,
-                                nlyr=NLYR16),
-         ("eig_beam", "blocktri_rt_fwd_group", "blocktri_rt_bwd_group",
-          "radsrc")),
-        (lambda: phase_radiance(device, reps=5, nstr=16, nbc=NBC16,
-                                nlyr=NLYR16),
-         ("eig_beam", "blocktri_rt_fwd_group", "blocktri_rt_bwd_group",
-          "radsrc")),
-        (lambda: phase_radiance(device, reps=10, nstr=8, nbc=512,
-                                nlyr=NLYR, planck=True, brdf=True),
-         ("eig_beam", rt_kernel(4), "radsrc")),
+        cell(phase_solve, 10, "nstr4-flux-33L",
+             owned=("eig_n2_deltam", "blocktri_rt_n2")),
+        cell(phase_solve, 10, "nstr16-flux-65L",
+             owned=("eig_beam", "blocktri_rt_fwd_group",
+                    "blocktri_rt_bwd_group")),
+        cell(phase_solve, 10, "nstr4-thermal-33L",
+             owned=("eig_n2_scatter", "blocktri_rt_n2")),
+        cell(phase_solve, 10, "nstr4-flux-65L",
+             owned=("eig_n2_deltam", rt_kernel(2))),
+        cell(phase_radiance, 10, "nstr4-rad-33L",
+             owned=("eig_n2_planar", "blocktri_rt_n2", "radsrc")),
+        cell(phase_radiance, 10, "nstr16-rad-65L/256",
+             owned=("eig_beam", "blocktri_rt_fwd_group",
+                    "blocktri_rt_bwd_group", "radsrc")),
+        cell(phase_radiance, 5, "nstr16-rad-65L/2048",
+             owned=("eig_beam", "blocktri_rt_fwd_group",
+                    "blocktri_rt_bwd_group", "radsrc")),
+        cell(phase_radiance, 10, "nstr8-brdf-thermal-33L",
+             owned=("eig_beam", rt_kernel(4), "radsrc")),
         (phase_cli, ("eig_n2_deltam", "blocktri_rt_n2")),
         (phase_cli_config2, ("eig_n2_scatter", "blocktri_rt_n2")),
         (phase_cli_config3, ("eig_beam", rt_kernel(8))),
         (phase_cli_config4, ("eig_beam", rt_kernel(8), "radsrc")),
-        (lambda: phase_generic(device, 3, "G1"),
-         ("eig_chain", "blocktri_rt_fwd_group", "blocktri_rt_bwd_group")),
-        (lambda: phase_generic(device, 5, "G2"), ("eig_chain", rt_kernel(4))),
-        (lambda: phase_generic(device, 5, "G2", bvp_method="scan"),
-         ("eig_chain", bt_kernel(8))),
-        (lambda: phase_generic(device, 5, "G3"),
-         ("eig_chain", "blocktri_rt_n2")),
-        (lambda: phase_generic(device, 5, "G4"), (rt_kernel(3),)),
-        (lambda: phase_generic(device, 5, "G5"), (rt_kernel(5),)),
-        (lambda: phase_generic(device, 5, "G6"), ("eig_beam", rt_kernel(4))),
+        cell(phase_generic, 3, "G1",
+             owned=("eig_chain", "blocktri_rt_fwd_group",
+                    "blocktri_rt_bwd_group")),
+        cell(phase_generic, 5, "G2", owned=("eig_chain", rt_kernel(4))),
+        cell(phase_generic, 5, "G2-scan", owned=("eig_chain", bt_kernel(8))),
+        cell(phase_generic, 5, "G3", owned=("eig_chain", "blocktri_rt_n2")),
+        cell(phase_generic, 5, "G4", owned=(rt_kernel(3),)),
+        cell(phase_generic, 5, "G5", owned=(rt_kernel(5),)),
+        cell(phase_generic, 5, "G6", owned=("eig_beam", rt_kernel(4))),
         (lambda: phase_cli_config4(nstr=10), (rt_kernel(5),)),
-        (lambda: phase_generic(device, 1, "G7", bar=0.0),
-         ("blocktri_rt_fwd_group", "blocktri_rt_bwd_group")),
-        (lambda: phase_generic(device, 1, "G8", bar=0.0),
-         ("blocktri_rt_group",)),
-        (lambda: phase_generic(device, 1, "G8", bvp_method="scan", bar=0.0),
-         (bt_kernel(18),)),
-        (lambda: phase_generic(device, 1, "G9", bar=0.0),
-         ("blocktri_rt_fwd_group", "blocktri_rt_bwd_group")),
+        cell(phase_generic, 1, "G7", bar=0.0,
+             owned=("blocktri_rt_fwd_group", "blocktri_rt_bwd_group")),
+        cell(phase_generic, 1, "G8", bar=0.0, owned=("blocktri_rt_group",)),
+        cell(phase_generic, 1, "G8-scan", bar=0.0, owned=(bt_kernel(18),)),
+        cell(phase_generic, 1, "G9", bar=0.0,
+             owned=("blocktri_rt_fwd_group", "blocktri_rt_bwd_group")),
         (lambda: phase_cli_config4(nstr=32),
          ("blocktri_rt_fwd_group", "blocktri_rt_bwd_group")),
-        (lambda: phase_generic(device, 1, "G10", bar=0.0),
-         ("blocktri_rt_fwd_group", "blocktri_rt_bwd_group")),
-        (lambda: phase_generic(device, 1, "G10", bvp_method="scan", bar=0.0),
-         ("block_thomas_group",)),
+        cell(phase_generic, 1, "G10", bar=0.0,
+             owned=("blocktri_rt_fwd_group", "blocktri_rt_bwd_group")),
+        cell(phase_generic, 1, "G10-scan", bar=0.0,
+             owned=("block_thomas_group",)),
         (phase_albtrn, ("eig_n2_deltam", "blocktri_rt_n2")),
         (lambda: phase_batch(device), ("eig_n2_scatter", "blocktri_rt_n2")),
         (lambda: phase_batch_solar(device),
@@ -2671,15 +3032,6 @@ RADSRC_AB = [(16, NLYR16, NBC_RAD16, UMU_VIEW, {}),
              (4, NLYR, 4096, UMU_VIEW, {}),
              (8, NLYR, 512, UMU_VIEW, dict(planck=True, brdf=True))]
 # the radiance cells that run B7, for --ab's solve lines
-RADIANCE_CELLS = {
-    "nstr16-rad-65L/256": dict(nbc=NBC_RAD16, nlyr=NLYR16, nstr=16),
-    "nstr16-rad-65L/2048": dict(nbc=NBC16, nlyr=NLYR16, nstr=16),
-    "nstr4-rad-33L": dict(nbc=4096, nlyr=NLYR, nstr=4),
-    "nstr8-brdf-thermal-33L": dict(nbc=512, nlyr=NLYR, nstr=8, planck=True,
-                                   brdf=True),
-}
-
-
 def ab_radsrc_cases(device):
     """(kernel, N, shape, call, fields) for `ab_times`: B7 at RADSRC_AB's
     shapes through rad_source_lane, on the path's own operands ("path":
@@ -2734,6 +3086,127 @@ def ab_batch(device, repeats=3):
             "columns_per_s": [len(batch) / w for w in walls]}
 
 
+def whole_loop_graph(device):
+    """The design the batch did not take: config 5's whole loop over its
+    63 band chunks (one column chunk of C5_COL_CHUNK columns) captured as
+    one graph, its body the batch's own band-chunk solve run eagerly
+    inside it: its node count, capture and instantiate seconds, one
+    replay's wall ms, and the replay against the eager loop (rel_err per
+    integral, 0.0 to the bit)."""
+    import numpy as np
+    import torch
+
+    from sbdart_tpu_torch.batch import build_batch_fn
+    from sbdart_tpu_torch.namelist import loads_namelist
+    from sbdart_tpu_torch.ops.graph import CapturedCall
+
+    cfg = loads_namelist(INPUT_C5.format(wlsup=40.0, nothrm=-1)).validate()
+    fn, meta = build_batch_fn(cfg, band_chunk=C5_BAND_CHUNK, device=device)
+    cols = c5_columns(c5_batch(), slice(0, C5_COL_CHUNK))
+    params = {k: np.asarray(getattr(cols, k)) for k in meta["names"]}
+    want = torch.stack(fn(params))
+    band = meta["solvers"][C5_COL_CHUNK].fn
+    stacked = meta["stacked"]
+
+    def loop(**p):
+        acc = torch.zeros_like(want)
+        for i in range(next(iter(stacked.values())).shape[0]):
+            part = band(**p, **{k: v[i] for k, v in stacked.items()})
+            for j in range(3):
+                acc[j] += part[j]
+        return acc
+
+    tensors = {k: torch.as_tensor(v, dtype=meta["dtype"], device=device)
+               for k, v in params.items()}
+    call = CapturedCall(loop, capture=True)
+    call(tensors)
+    got = call(tensors)
+    torch.cuda.synchronize()
+    err = {f: bit_diff(got[j], want[j])[0]
+           for j, f in enumerate(("fdir", "fdn", "fup"))}
+    out = {"nodes": call.node_count(), "capture_s": call.capture_s,
+           "instantiate_s": call.instantiate_s,
+           "pool_bytes": call.pool_bytes,
+           "replay_ms": timed_ms(lambda: call(tensors), 2, warmup=0),
+           "rel_err": err}
+    del call, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def ab_graphs(device, repeats=3):
+    """For `ab_times` (group "graphs"): run_pipeline through api.run on
+    the cli configs 1, 3's solar part, 4 and 4 at nstr=10, `repeats` times
+    each in one process (the first also captures where the rule admits
+    it), then config 5's batch (`ab_batch`): each run's wall seconds; in a
+    checkout that captures, also `whole_loop_graph`."""
+    from sbdart_tpu_torch.api import run
+    from sbdart_tpu_torch.namelist import loads_namelist
+
+    out = {}
+    for name, text in (
+            ("config1", INPUT_C1),
+            ("config3_solar", INPUT_C3.format(wlinf=0.25, wlsup=2.0)),
+            ("config4", INPUT_C4.format(iaer=1, nstr=16)),
+            ("config4_nstr10", INPUT_C4.format(iaer=1, nstr=10))):
+        cfg = loads_namelist(text)
+        walls = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            run(cfg)
+            walls.append(time.perf_counter() - t0)
+        out[name] = walls
+    out["batch"] = ab_batch(device)
+    try:
+        from sbdart_tpu_torch.ops import graph  # noqa: F401
+    except ImportError:     # a checkout from before captured solves
+        return out
+    return {**out, "whole_loop_graph": whole_loop_graph(device)}
+
+
+def ab_sweep(device, keys=8):
+    """For `ab_times` (group "sweep", asked for by name only): config 4's
+    namelist at nstr=32 through api.run once for each of `keys` azimuth
+    sets (the last azimuth 180, 179, ...: a new chunk-solver key each) in
+    one process.  After each run: the device memory reserved and its peak
+    so far (bytes), and where the checkout caches captured solvers
+    (`pipeline._captured_solver.entries`), the keys held, their pools'
+    bytes and the pool of this run's graph; each run's wall seconds."""
+    import torch
+
+    from sbdart_tpu_torch import pipeline
+    from sbdart_tpu_torch.api import run
+    from sbdart_tpu_torch.namelist import loads_namelist
+
+    entries = getattr(getattr(pipeline, "_captured_solver", None),
+                      "entries", None)
+    torch.cuda.reset_peak_memory_stats(device)
+    rows = []
+    for i in range(keys):
+        text = INPUT_C4.format(iaer=1, nstr=32).replace(
+            "phi=0,90,180", f"phi=0,90,{180 - i}")
+        t0 = time.perf_counter()
+        run(loads_namelist(text))
+        row = {"seconds": time.perf_counter() - t0,
+               "reserved": torch.cuda.memory_reserved(device),
+               "max_reserved": torch.cuda.max_memory_reserved(device)}
+        if entries is not None:
+            held = [c for c in entries() if c.graph is not None]
+            row.update(keys_held=len(held),
+                       pools_held=sum(c.pool_bytes for c in held),
+                       this_pool=entries()[-1].pool_bytes)
+        rows.append(row)
+    out = {"runs": rows,
+           "max_reserved": torch.cuda.max_memory_reserved(device),
+           "total_memory": torch.cuda.get_device_properties(
+               device).total_memory}
+    if entries is not None:
+        from sbdart_tpu_torch.ops.graph import pool_budget
+
+        out["pool_budget"] = pool_budget(device)
+    return out
+
+
 def ab_times(tree, groups=("radsrc", "solves", "kernels")) -> int:
     """The `--ab` mode: from the sbdart_tpu_torch package of the checkout
     at `tree` (built there), time the kernels of `ab_radsrc_cases`
@@ -2743,7 +3216,10 @@ def ab_times(tree, groups=("radsrc", "solves", "kernels")) -> int:
     replays), and break the radiance solves of `ab_solves` (group
     "solves") into device busy ms, kernels, copies and operations; group
     "batch", asked for by name only, times config 5's batch
-    (`ab_batch`).  Run on two checkouts in turns (parent, change, change,
+    (`ab_batch`), group "graphs", likewise, the cli configs' pipelines
+    and the batch (`ab_graphs`: captured where the checkout captures), and
+    group "sweep", likewise, device memory over a sweep of chunk-solver
+    keys (`ab_sweep`).  Run on two checkouts in turns (parent, change, change,
     parent) within one call to compare them on one card."""
     import torch
 
@@ -2782,6 +3258,12 @@ def ab_times(tree, groups=("radsrc", "solves", "kernels")) -> int:
         torch.cuda.empty_cache()
     if "batch" in groups:
         emit({"phase": "ab", "batch": "config 5", **ab_batch(device)})
+    if "graphs" in groups:
+        emit({"phase": "ab", "graphs": "pipeline and batch walls",
+              **ab_graphs(device)})
+    if "sweep" in groups:
+        emit({"phase": "ab", "sweep": "config 4 at nstr=32, a key a run",
+              **ab_sweep(device)})
     if "solves" in groups:
         for name, solve in ab_solves(device):
             solve()

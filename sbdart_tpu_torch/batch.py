@@ -13,7 +13,17 @@ Design, as the reference's:
     absorber amount; cloud/aerosol optical depths linearly in burden);
   * the spectral loop runs over the band chunks (the reference's
     `lax.scan`), each chunk one batched solve_rte over [columns, bands,
-    k-terms] adding to three accumulators;
+    k-terms] adding to three accumulators; as the reference jits that
+    loop, its body, one band chunk's solve, is one ops/graph.py:
+    CapturedCall per column-chunk shape where ops/graph.py:graph_ok admits
+    the route (float32 on the card): the first band chunk runs eagerly
+    (the warm-up), every later one has its band tables and columns copied
+    into the graph's static inputs and is replayed.  (One graph of the
+    whole loop, ~107k nodes at config 5's 63 band chunks, took 1.4 s to
+    instantiate on the H100, as long as a column chunk runs; one band
+    chunk's ~1.7k nodes take milliseconds, and the first column chunk
+    replays too.)  The collectives and the checkpoint decision stay
+    outside the graph;
   * on a process grid (sharding.make_mesh) the columns of each column
     chunk are padded to a multiple of `data` and split over the data
     ranks, the band chunks over the band ranks; the band-partial
@@ -51,6 +61,7 @@ from sbdart_tpu_torch.clouds import (
 )
 from sbdart_tpu_torch.config import Config
 from sbdart_tpu_torch.dtypes import default_dtype, parse_dtype
+from sbdart_tpu_torch.ops.graph import CapturedCall, graph_ok
 from sbdart_tpu_torch.optics import build_optical_deck, component_moments
 from sbdart_tpu_torch.pipeline import (
     _trapz_weights,
@@ -60,7 +71,7 @@ from sbdart_tpu_torch.pipeline import (
 from sbdart_tpu_torch.rayleigh import rayleigh_moments
 from sbdart_tpu_torch.sharding import make_mesh, pad_to_multiple, rank_device
 from sbdart_tpu_torch.solar import filter_function, solar_irradiance, spectral_grid
-from sbdart_tpu_torch.solver.disort import solve_rte
+from sbdart_tpu_torch.solver.disort import route, solve_rte
 from sbdart_tpu_torch.surface import surface_albedo
 
 log = logging.getLogger("sbdart_tpu_torch.batch")
@@ -213,64 +224,77 @@ def build_batch_fn(cfg: Config, *, band_chunk: int = 32, dtype=None,
         device=device)
     nlev = profile.nlev
 
-    def column_solve(params):
-        """One rank's spectral loop. params: dict of [C_local] tensors."""
-        csza = params["csza"][:, None, None]               # [C,1,1]
-        gs = params["gas_scale"][:, None, None, None]
-        cs = params["cld_scale"][:, None, None]
-        as_ = params["aer_scale"][:, None, None]
-        albs = params["albedo_scale"][:, None, None]
+    def band_solve(albedo_scale, aer_scale, cld_scale, csza, gas_scale,
+                   **ch):
+        """One band chunk's solve over [C_local] parameter tensors and the
+        chunk's band tables `ch`: its three spectral integrals, each
+        [C_local, nlev]."""
+        csza = csza[:, None, None]                         # [C,1,1]
+        gs = gas_scale[:, None, None, None]
+        cs = cld_scale[:, None, None]
+        as_ = aer_scale[:, None, None]
+        albs = albedo_scale[:, None, None]
         ncol = csza.shape[0]
-        acc = torch.zeros((3, ncol, nlev), dtype=dtype, device=device)
-        for i in range(per_rank):
-            ch = {k: v[i] for k, v in stacked.items()}
-            # recombine optical properties [C, B, k, L]
-            tau_ray = ch["tau_ray"][None, :, None, :]
-            tau_gas = gs * ch["tau_gas"][None]
-            tau_cld = cs[..., None] * ch["tau_c"][None, :, None, :]
-            tau_aer = as_[..., None] * ch["tau_a"][None, :, None, :]
-            dtau = tau_ray + tau_gas + tau_cld + tau_aer
-            scat = (
-                tau_ray
-                + cs[..., None] * ch["scat_c"][None, :, None, :]
-                + as_[..., None] * ch["scat_a"][None, :, None, :]
-            )
-            ssalb = torch.clip(scat / torch.clamp_min(dtau, 1e-30), 0.0, 1.0)
-            mom = (
-                ch["mom_r"][None, :, None]
-                + cs[..., None, None] * ch["mom_c"][None, :, None]
-                + as_[..., None, None] * ch["mom_a"][None, :, None]
-            )
-            pmom = mom / torch.clamp_min(scat[..., None], 1e-30)
-            pmom[..., 0] = 1.0
+        # recombine optical properties [C, B, k, L]
+        tau_ray = ch["tau_ray"][None, :, None, :]
+        tau_gas = gs * ch["tau_gas"][None]
+        tau_cld = cs[..., None] * ch["tau_c"][None, :, None, :]
+        tau_aer = as_[..., None] * ch["tau_a"][None, :, None, :]
+        dtau = tau_ray + tau_gas + tau_cld + tau_aer
+        scat = (
+            tau_ray
+            + cs[..., None] * ch["scat_c"][None, :, None, :]
+            + as_[..., None] * ch["scat_a"][None, :, None, :]
+        )
+        ssalb = torch.clip(scat / torch.clamp_min(dtau, 1e-30), 0.0, 1.0)
+        mom = (
+            ch["mom_r"][None, :, None]
+            + cs[..., None, None] * ch["mom_c"][None, :, None]
+            + as_[..., None, None] * ch["mom_a"][None, :, None]
+        )
+        pmom = mom / torch.clamp_min(scat[..., None], 1e-30)
+        pmom[..., 0].fill_(1.0)
 
-            thermal_c = ch["tmask"][None, :, None] > 0     # [1,B,1]
-            fbeam = ch["fbeam"][None, :, None] * torch.where(
-                thermal_c, ch["band_dlam"][None, :, None], 1.0
-            )
-            temper_c = torch.where(thermal_c[..., None], temper, 1e-4)
-            out = solve_rte(
-                dtau, ssalb, pmom,
-                nstr=cfg.nstr,
-                fbeam=fbeam, umu0=csza, fisot=cfg.fisot,
-                # perturbation scalings must not push albedo past 1
-                albedo=torch.clip(albs * ch["alb"][None, :, None], 0.0, 1.0),
-                planck=any_thermal,
-                temper=temper_c,
-                wvnlo=ch["wvnlo"][None, :, None],
-                wvnhi=ch["wvnhi"][None, :, None],
-                btemp=torch.where(thermal_c, btemp, 1e-4),
-                deltam=cfg.deltam, onlyfl=True, dtype=dtype,
-                eig_method=eig_method, device=device,
-            )
-            conv = torch.where(thermal_c, 1.0 / ch["band_dlam"][None, :, None],
-                               1.0)
-            w = (ch["w_int"][None, :, None] * conv * ch["wk"][None]).expand(
-                ncol, -1, -1)
-            acc[0] += torch.einsum("cbk,cbkv->cv", w, out.rfldir)
-            acc[1] += torch.einsum("cbk,cbkv->cv", w, out.rfldn)
-            acc[2] += torch.einsum("cbk,cbkv->cv", w, out.flup)
-            del out         # free this chunk's outputs before the next solve
+        thermal_c = ch["tmask"][None, :, None] > 0     # [1,B,1]
+        fbeam = ch["fbeam"][None, :, None] * torch.where(
+            thermal_c, ch["band_dlam"][None, :, None], 1.0
+        )
+        temper_c = torch.where(thermal_c[..., None], temper, 1e-4)
+        out = solve_rte(
+            dtau, ssalb, pmom,
+            nstr=cfg.nstr,
+            fbeam=fbeam, umu0=csza, fisot=cfg.fisot,
+            # perturbation scalings must not push albedo past 1
+            albedo=torch.clip(albs * ch["alb"][None, :, None], 0.0, 1.0),
+            planck=any_thermal,
+            temper=temper_c,
+            wvnlo=ch["wvnlo"][None, :, None],
+            wvnhi=ch["wvnhi"][None, :, None],
+            btemp=torch.where(thermal_c, btemp, 1e-4),
+            deltam=cfg.deltam, onlyfl=True, dtype=dtype,
+            eig_method=eig_method, device=device,
+        )
+        conv = torch.where(thermal_c, 1.0 / ch["band_dlam"][None, :, None],
+                           1.0)
+        w = (ch["w_int"][None, :, None] * conv * ch["wk"][None]).expand(
+            ncol, -1, -1)
+        return tuple(torch.einsum("cbk,cbkv->cv", w, f)
+                     for f in (out.rfldir, out.rfldn, out.flup))
+
+    capture = graph_ok(route(nstr=cfg.nstr, onlyfl=True, brdf=None),
+                       cfg.nstr, dtype, device)
+    solvers = {}        # one CapturedCall per local column count
+
+    def column_solve(solver, params):
+        """One rank's spectral loop: the band chunks' integrals summed in
+        three accumulators [3, C_local, nlev] (a replay's integrals are
+        added before the next replay)."""
+        acc = torch.zeros((3, params["csza"].shape[0], nlev), dtype=dtype,
+                          device=device)
+        for i in range(per_rank):
+            part = solver({**params, **{k: v[i] for k, v in stacked.items()}})
+            for j in range(3):
+                acc[j] += part[j]
         return acc
 
     def prepare_and_run(params_np: dict) -> tuple:
@@ -282,7 +306,11 @@ def build_batch_fn(cfg: Config, *, band_chunk: int = 32, dtype=None,
         params = {k: torch.as_tensor(
             np.asarray(params_np[k])[lo:lo + c // nd], dtype=dtype,
             device=device) for k in PARAM_NAMES}
-        acc = column_solve(params)
+        solver = solvers.get(c // nd)
+        if solver is None:
+            solver = solvers[c // nd] = CapturedCall(band_solve,
+                                                     capture=capture)
+        acc = column_solve(solver, params)
         if mesh.distributed:
             # the only reduction: band-partial integrals summed over 'band'
             dist.all_reduce(acc, group=mesh.band_group)
@@ -294,6 +322,7 @@ def build_batch_fn(cfg: Config, *, band_chunk: int = 32, dtype=None,
     return prepare_and_run, dict(
         profile=profile, wl=wl, mesh=mesh, stacked=stacked,
         names=list(PARAM_NAMES), nlev=nlev, device=device, dtype=dtype,
+        solvers=solvers,
     )
 
 

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from sbdart_tpu_torch.dtypes import default_device, default_dtype, parse_dtype
+from sbdart_tpu_torch.ops.graph import const
 from sbdart_tpu_torch.optics import OpticalDeck
 from sbdart_tpu_torch.solver.eig import AngularTables
 
@@ -38,12 +39,10 @@ def deck_to_torch(deck, device=None, dtype=None) -> OpticalDeck:
 
 
 def tables_to_torch(tab, device=None, dtype=None) -> AngularTables:
-    """AngularTables with every field as a tensor on `device`."""
+    """AngularTables with every field as a tensor on `device`, each made
+    once per table, dtype and device (ops/graph.py:const)."""
     device, dtype = _resolve(device, dtype)
-    return AngularTables(*(
-        torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
-        for x in tab
-    ))
+    return AngularTables(*(const(x, dtype, device) for x in tab))
 
 
 def rte_inputs_to_torch(device=None, dtype=None, **arrays) -> dict:

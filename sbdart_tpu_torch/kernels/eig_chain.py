@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from sbdart_tpu_torch.kernels.eig_n2 import eigh2_half_angle
+from sbdart_tpu_torch.ops.graph import const, index
 from sbdart_tpu_torch.ops.lane import (
     _round_robin_pairs,
     lcholesky,
@@ -93,8 +94,7 @@ def _kernel_consts(mu: tuple, w: tuple) -> np.ndarray:
 
 def _vec(vals, like) -> torch.Tensor:
     """Constants as a [1, n, 1, 1] tensor for scaling rows (dim 1)."""
-    return torch.tensor(vals, dtype=like.dtype,
-                        device=like.device).reshape(1, -1, 1, 1)
+    return const(vals, like.dtype, like.device).reshape(1, -1, 1, 1)
 
 
 def _sym(a):
@@ -117,7 +117,7 @@ def _jacobi(c, a, sweeps):
     v = torch.zeros_like(a) + torch.eye(
         n, dtype=a.dtype, device=a.device)[None, :, :, None]
     idx = torch.arange(n, device=a.device)
-    rounds = [(torch.as_tensor(pt, device=a.device), _vec(-sg, a)[..., 0],
+    rounds = [(index(pt, a.device), _vec(-sg, a)[..., 0],
                _vec(sg, a)[..., 0]) for pt, sg in c["tables"]]
     for _ in range(sweeps):
         for partner, neg_sgn, sgn in rounds:

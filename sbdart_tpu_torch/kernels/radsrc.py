@@ -35,6 +35,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sbdart_tpu_torch.ops.graph import const
+
 RES_EPS = 1e-5      # resonance half-width of the 'away' integral
 MAX_ANGLES = 20     # SBDART's uzen limit; the kernel's table size
 
@@ -79,8 +81,8 @@ def rad_source_lane_plain(t1, t2, yu, c, y0d, gp, gm, kk, zp, zm, a, b,
     every sum runs in the kernel's order.  Shapes as in the module doc."""
     nm, nu, n, nstr = t1.shape
     up, ua, inv_ua = (row.tolist() for row in _angle_consts(umu, c.dtype))
-    mfac = torch.full((nm, 1), 2.0, dtype=c.dtype, device=c.device)
-    mfac[0] = 1.0
+    mfac = const(np.where(np.arange(nm) == 0, 1.0, 2.0)[:, None], c.dtype,
+                 c.device)
     dtau, ebtop, mu0, scale = (x.reshape(1, -1)
                                for x in (dtau, ebtop, mu0, scale))
     amp = mfac * scale                                  # [M, LB]

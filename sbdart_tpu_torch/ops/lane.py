@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from sbdart_tpu_torch.ops.graph import const, index
+
 
 def to_lane(x: torch.Tensor, ndim_mat: int = 2) -> tuple[torch.Tensor, tuple]:
     """[..., n, n] -> [n, n, B] (or [..., n] -> [n, B]); returns the batch
@@ -199,9 +201,9 @@ def _leigh_parallel(a: torch.Tensor, v: torch.Tensor, sweeps: int):
             partner[p], partner[q] = q, p
             sgn[p], sgn[q] = -1.0, 1.0
             pair_of[p] = pair_of[q] = k
-        rounds.append((pairs, torch.tensor(partner, device=a.device),
-                       torch.tensor(sgn, dtype=a.dtype, device=a.device),
-                       torch.tensor(pair_of, device=a.device)))
+        rounds.append((pairs, index(partner, a.device),
+                       const(sgn, a.dtype, a.device),
+                       index(pair_of, a.device)))
     for _ in range(sweeps):
         for pairs, prm, sgn, pair_of in rounds:
             app = torch.stack([a[p, p] for p, _ in pairs])    # [n/2, B]

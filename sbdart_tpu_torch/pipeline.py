@@ -7,6 +7,15 @@ moved to the device once; it is then solved in fixed-size wavelength
 CHUNKS, each ONE batched solve over the (chunk, k) axes.  k-weighting and
 spectral integration happen on the host (outputs.py) where they are cheap.
 
+As the reference compiles one chunk solver per static configuration
+(`_jitted_solver`, sbdart_tpu/pipeline.py:100-121) and replays it per
+chunk, `_captured_solver` keeps one ops/graph.py:CapturedCall per static
+configuration, chunk shape and device: the first chunk of a key runs
+eagerly (the warm-up; a one-chunk run captures nothing), every later one
+is copied into the graph's static inputs and replayed, where
+ops/graph.py:graph_ok admits the route (float32 on the card), and runs
+eagerly elsewhere.
+
 Thermal handling, as the reference's: when any sample is thermal (beyond
 THERMAL_WL_UM under the default nothrm = -1, or every sample under
 nothrm = 0), every chunk is solved with the Planck source on and a
@@ -28,6 +37,12 @@ from sbdart_tpu_torch.clouds import apply_cloud_humidity, load_usrcld_dat
 from sbdart_tpu_torch.config import Config
 from sbdart_tpu_torch.convert import deck_to_torch, rte_inputs_to_torch
 from sbdart_tpu_torch.dtypes import default_device, default_dtype, parse_dtype
+from sbdart_tpu_torch.ops.graph import (
+    CapturedCall,
+    as_device,
+    graph_cache,
+    graph_ok,
+)
 from sbdart_tpu_torch.optics import build_optical_deck
 from sbdart_tpu_torch.solar import (
     filter_function,
@@ -35,7 +50,7 @@ from sbdart_tpu_torch.solar import (
     solar_irradiance,
     spectral_grid,
 )
-from sbdart_tpu_torch.solver.disort import solve_rte
+from sbdart_tpu_torch.solver.disort import route, solve_rte
 from sbdart_tpu_torch.surface import surface_albedo
 
 THERMAL_WL_UM = 2.0     # nothrm = -1: thermal source on beyond this (rt.doc)
@@ -118,6 +133,52 @@ def user_angles(cfg: Config):
     phi = np.array([p if p >= 0 else 0.0 for p in cfg.phi[:nphi]])
     umu = np.cos(np.deg2rad(np.array(cfg.uzen[:nzen], np.float64)))
     return np.where(np.abs(umu) < 1e-4, 1e-4, umu), phi
+
+
+@graph_cache(maxsize=32)
+def _captured_solver(nstr, onlyfl, planck, deltam, corint, numu, nphi,
+                     dtype_name, umu, phi, shapes, device) -> CapturedCall:
+    """One chunk solver per static configuration: the counterpart of the
+    reference's `_jitted_solver` (sbdart_tpu/pipeline.py:100-121), keyed
+    by its static arguments, then by its static `umu`/`phi` (tuples of the
+    rounded cosines and azimuths; () without radiances), the chunk's
+    input shapes ((name, shape) pairs) and the device.  Each graph holds a
+    private memory pool until the cache drops it: 32 keys, as the
+    reference's, and before a capture the least recently used graphs
+    whose pools pass ops/graph.py:pool_budget (graph_cache)."""
+    dtype = parse_dtype(dtype_name)
+
+    def solve(dtau, ssalb, pmom, fbeam, umu0, phi0, fisot, albedo,
+              temper=None, wvnlo=0.0, wvnhi=0.0, btemp=0.0, ttemp=0.0,
+              temis=0.0):
+        return solve_rte(
+            dtau, ssalb, pmom, nstr=nstr, fbeam=fbeam, umu0=umu0,
+            phi0=phi0, fisot=fisot, albedo=albedo, planck=planck,
+            temper=temper, wvnlo=wvnlo, wvnhi=wvnhi, btemp=btemp,
+            ttemp=ttemp, temis=temis, deltam=deltam, onlyfl=onlyfl,
+            umu=np.array(umu) if numu else None,
+            phi=np.array(phi) if nphi else None,
+            corint=corint, dtype=dtype, device=device,
+        )
+
+    path = route(nstr=nstr, onlyfl=onlyfl, brdf=None, umu=umu or None,
+                 phi=phi or None)
+    return CapturedCall(solve, capture=graph_ok(path, nstr, dtype, device))
+
+
+def solver_key(cfg: Config, *, onlyfl: bool, planck: bool, umu, phi,
+               dtype: torch.dtype, inputs: dict, device) -> tuple:
+    """The arguments of `_captured_solver` for a run of `cfg` whose chunks
+    have the tensors `inputs`: what the reference's jit treats as static
+    (pipeline.py:262-266 and the static umu/phi), never the data."""
+    def angles(a):
+        return () if a is None else tuple(float(x) for x in np.round(a, 10))
+
+    return (cfg.nstr, onlyfl, planck, cfg.deltam, cfg.corint,
+            0 if umu is None else len(umu), 0 if phi is None else len(phi),
+            str(dtype).removeprefix("torch."), angles(umu), angles(phi),
+            tuple((k, tuple(v.shape)) for k, v in inputs.items()),
+            torch.device(device))
 
 
 @dataclasses.dataclass
@@ -255,6 +316,9 @@ def run_pipeline(
     # the whole spectral problem goes to the device once
     dev_deck = deck_to_torch(deck, device, dtype)
     alb_d = torch.as_tensor(alb, dtype=dtype, device=device)
+    scalars = {k: as_device(v, dtype, device) for k, v in
+               (("umu0", csza), ("phi0", cfg.phi0), ("fisot", cfg.fisot))}
+    solver = None
 
     nlev = nlyr + 1
     fdir = np.zeros((nwl, nlev))
@@ -277,9 +341,17 @@ def run_pipeline(
         # 1e-4 K (Planck == 0); thermal samples take the beam per band
         tmask = thermal[idx]
         fbeam_c = fbeam[idx] * np.where(tmask, band_dlam[idx], 1.0)
-        thermal_kw = {}
+        inputs = dict(
+            dtau=dev_deck.dtau[idx_d],
+            ssalb=dev_deck.ssalb[idx_d],
+            pmom=dev_deck.pmom[idx_d][:, None],
+            fbeam=torch.as_tensor(fbeam_c * (csza > 0), dtype=dtype,
+                                  device=device)[:, None],
+            albedo=alb_d[idx_d][:, None],
+            **scalars,
+        )
         if any_thermal:
-            thermal_kw = dict(planck=True, **rte_inputs_to_torch(
+            inputs.update(rte_inputs_to_torch(
                 device, dtype,
                 temper=np.where(tmask[:, None, None], temper[None, None, :],
                                 1e-4),
@@ -288,27 +360,12 @@ def run_pipeline(
                 ttemp=np.where(tmask, ttemp, 1e-4)[:, None],
                 temis=cfg.temis,
             ))
-
-        out = solve_rte(
-            dev_deck.dtau[idx_d],
-            dev_deck.ssalb[idx_d],
-            dev_deck.pmom[idx_d][:, None],
-            nstr=cfg.nstr,
-            fbeam=torch.as_tensor(fbeam_c * (csza > 0), dtype=dtype,
-                                  device=device)[:, None],
-            umu0=csza,
-            phi0=cfg.phi0,
-            fisot=cfg.fisot,
-            albedo=alb_d[idx_d][:, None],
-            deltam=cfg.deltam,
-            onlyfl=not want_rad,
-            umu=None if umu is None else np.round(umu, 10),
-            phi=None if phi is None else np.round(phi, 10),
-            corint=cfg.corint,
-            dtype=dtype,
-            device=device,
-            **thermal_kw,
-        )
+        if solver is None:
+            solver = _captured_solver(*solver_key(
+                cfg, onlyfl=not want_rad, planck=any_thermal, umu=umu,
+                phi=phi, dtype=dtype, inputs=inputs, device=device))
+        # a replay's outputs are the graph's: read before the next chunk
+        out = solver(inputs)
 
         wk = deck.wk[idx]                  # [chunk, nk]
         # thermal outputs are per band; convert to per-um spectral density

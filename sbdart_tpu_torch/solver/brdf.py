@@ -23,6 +23,8 @@ import math
 import numpy as np
 import torch
 
+from sbdart_tpu_torch.ops.graph import as_device, const
+
 N_PSI = 64   # azimuth quadrature points for the Fourier projection
 
 
@@ -96,7 +98,9 @@ def fourier_refl_matrices(brdf, mu_out, mu_in, nmode: int):
     psi = np.linspace(0.0, 2.0 * np.pi, N_PSI, endpoint=False)
 
     def t(x):
-        return torch.as_tensor(x, dtype=mu_in.dtype, device=mu_in.device)
+        if isinstance(x, torch.Tensor):
+            return as_device(x, mu_in.dtype, mu_in.device)
+        return const(x, mu_in.dtype, mu_in.device)
 
     cosm = t(np.cos(np.arange(nmode)[:, None] * psi[None, :]))   # [m, P]
     rho = brdf.rho(t(mu_out)[..., :, None, None], mu_in[..., None, :, None],
@@ -110,6 +114,5 @@ def hemispherical_reflectance(brdf, mu_in, w, mu):
     the directional emissivity of the surface.  mu_in: a tensor of
     cosines; w, mu: the quadrature."""
     r0 = fourier_refl_matrices(brdf, np.asarray(mu), mu_in, 1)
-    wmu = torch.as_tensor(np.asarray(w) * np.asarray(mu), dtype=mu_in.dtype,
-                          device=mu_in.device)
+    wmu = const(np.asarray(w) * np.asarray(mu), mu_in.dtype, mu_in.device)
     return torch.einsum("i,...ij->...j", wmu, r0[..., 0, :, :])

@@ -24,9 +24,11 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from sbdart_tpu_torch.ops import lane
+from sbdart_tpu_torch.ops.graph import const
 from sbdart_tpu_torch.solver.eig import AngularTables, EigResult
 from sbdart_tpu_torch.solver.sources import BeamSource, ThermalSource
 
@@ -55,9 +57,8 @@ def particular_at_bounds(beam: BeamSource, thermal: ThermalSource | None,
     bot_up = beam.zp * eb_bot
     bot_dn = beam.zm * eb_bot
     if thermal is not None:
-        mode_mask = torch.zeros((nmode, 1, 1), dtype=top_up.dtype,
-                                device=top_up.device)
-        mode_mask[0] = 1.0
+        mode_mask = const((np.arange(nmode) == 0)[:, None, None],
+                          top_up.dtype, top_up.device)     # 1 on mode 0
         d = dtau[..., None]
         top_up = top_up + mode_mask * thermal.y0p[..., None, :, :]
         top_dn = top_dn + mode_mask * thermal.y0m[..., None, :, :]
@@ -105,8 +106,8 @@ def solve_bvp(eig: EigResult, part: ParticularAtBounds, dtau, surf_refl,
     n = len(tab.mu)
     nmode = eig.kk.shape[-3]
     batch_shape = tuple(eig.kk.shape[:-3]) + (nmode,)
-    w = torch.as_tensor(tab.w, dtype=dtype, device=device)
-    mu = torch.as_tensor(tab.mu, dtype=dtype, device=device)
+    w = const(tab.w, dtype, device)
+    mu = const(tab.mu, dtype, device)
     wmu = (w * mu)[:, None]                        # [N, 1] column scale
 
     ee_std = torch.exp(-eig.kk * dtau[..., None, :, None])   # [..., m, L, N]
@@ -120,9 +121,8 @@ def solve_bvp(eig: EigResult, part: ParticularAtBounds, dtau, surf_refl,
 
     srefl = lane.to_lane(surf_refl)[0]             # [N, N, B]
     bref = lane.to_lane(beam_refl_src, 1)[0]       # [N, B]
-    mode0 = torch.zeros(batch_shape, dtype=dtype, device=device)
-    mode0[..., 0] = 1.0
-    mode0 = mode0.reshape(-1)                      # [B] 1 on azimuth mode 0
+    mode0 = const(np.arange(nmode) == 0, dtype, device).expand(
+        batch_shape).reshape(-1)                   # [B] 1 on azimuth mode 0
     iso = (_flat_bm(fisot, nmode) + _flat_bm(top_emission, nmode)) * mode0
     ones_m = torch.ones((nmode, 1), dtype=dtype, device=device)
     semis = (lane.to_lane(surf_emission[..., None, :] * ones_m, 1)[0]

@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from sbdart_tpu_torch.dtypes import default_device, default_dtype, parse_dtype
+from sbdart_tpu_torch.ops.graph import as_device, const
 
 
 class RteOutputs(NamedTuple):
@@ -126,7 +127,7 @@ def solve_rte(
     dtype = default_dtype(device) if dtype is None else parse_dtype(dtype)
 
     def t(x):
-        return torch.as_tensor(x, dtype=dtype, device=device)
+        return as_device(x, dtype, device)
 
     dtauc, ssalb_in, pmom = t(dtauc), t(ssalb), t(pmom)
     nlyr = dtauc.shape[-1]
@@ -258,8 +259,7 @@ def solve_rte_generic(dtauc, ssalb_in, pmom, *, nstr, fbeam, umu0, phi0,
                                         nmode)
 
     # ---- surface operators (SURFAC/BDREF) ----------------------------------
-    mode0_vec = torch.zeros(nmode, dtype=dtype, device=device)
-    mode0_vec[0] = 1.0
+    mode0_vec = const(np.arange(nmode) == 0, dtype, device)   # 1 on mode 0
     beam_flux_surf = mu0 * torch.where(has_beam, fbeam, 0.0) * expbea_s[..., -1]
     if brdf is None:
         ones_nn = torch.ones((n, n), dtype=dtype, device=device)
@@ -274,13 +274,13 @@ def solve_rte_generic(dtauc, ssalb_in, pmom, *, nstr, fbeam, umu0, phi0,
             hemispherical_reflectance,
         )
 
-        mu_q = torch.as_tensor(tab.mu, dtype=dtype, device=device)
+        mu_q = const(tab.mu, dtype, device)
         surf_refl = fourier_refl_matrices(brdf, mu_q, mu_q, nmode).expand(
             batch + (nmode, n, n))
         r_beam = fourier_refl_matrices(brdf, mu_q, mu0[..., None],
                                        nmode)[..., :, :, 0]  # [..., m, N]
-        mfac = torch.as_tensor(np.where(np.arange(nmode) == 0, 1.0, 2.0),
-                               dtype=dtype, device=device)
+        mfac = const(np.where(np.arange(nmode) == 0, 1.0, 2.0), dtype,
+                     device)
         beam_refl_src = (r_beam * mfac[:, None] / (2.0 * math.pi)
                          * beam_flux_surf[..., None, None])
         if planck is not None:

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from sbdart_tpu_torch.ops import lane
+from sbdart_tpu_torch.ops.graph import const
 from sbdart_tpu_torch.ops.batched_linalg import (
     cholesky_small,
     eigh_small,
@@ -67,7 +68,7 @@ class EigResult(NamedTuple):
 
 
 def _t(x, like):
-    return torch.as_tensor(x, dtype=like.dtype, device=like.device)
+    return const(x, like.dtype, like.device)
 
 
 def scattering_matrices(ssalb, gl, tab: AngularTables):

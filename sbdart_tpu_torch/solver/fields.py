@@ -15,6 +15,7 @@ from typing import NamedTuple
 
 import torch
 
+from sbdart_tpu_torch.ops.graph import const
 from sbdart_tpu_torch.solver.bvp import BoundaryIntensities
 from sbdart_tpu_torch.solver.eig import AngularTables
 
@@ -34,8 +35,8 @@ def fluxes(bounds: BoundaryIntensities, tab: AngularTables, fbeam, umu0,
     unscaled optical depths; ssalb_unscaled [..., L]; b_level [..., L+1]
     Planck radiance at the levels (None: no thermal source)."""
     like = ssalb_unscaled
-    w = torch.as_tensor(tab.w, dtype=like.dtype, device=like.device)
-    mu = torch.as_tensor(tab.mu, dtype=like.dtype, device=like.device)
+    w = const(tab.w, like.dtype, like.device)
+    mu = const(tab.mu, like.dtype, like.device)
     wmu = w * mu
 
     iu = bounds.up[..., 0, :, :]    # azimuth mode 0: [..., L+1, N]

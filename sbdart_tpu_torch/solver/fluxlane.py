@@ -51,6 +51,7 @@ from sbdart_tpu_torch.kernels.eig_n2_scatter import (
     eig_beam_scatter_n2,
     eig_beam_scatter_n2_plain,
 )
+from sbdart_tpu_torch.ops.graph import const
 from sbdart_tpu_torch.solver.deltam import DeltaMResult, apply_deltam
 from sbdart_tpu_torch.solver.disort import RteOutputs
 from sbdart_tpu_torch.solver.eig import AngularTables, angular_tables
@@ -135,7 +136,7 @@ def general_operands(dm: DeltaMResult, tab, mu0, scale_row):
     nlyr = dm.ssalb.shape[-1]
 
     def t(x):
-        return torch.as_tensor(x, dtype=dtype, device=device)
+        return const(x, dtype, device)
 
     c = 0.5 * dm.ssalb[..., None] * t(tab.twol1) * dm.gl   # [.., L, nstr]
     c_scan = to_scan(c, 2)                                 # [L, nstr, Bc]
@@ -285,7 +286,7 @@ def _thermal(fe: FrontEnd, pk: PlanckInputs, albedo):
     dtype, device = dm.ssalb.dtype, dm.ssalb.device
 
     def t(x):
-        return torch.as_tensor(x, dtype=dtype, device=device)
+        return const(x, dtype, device)
 
     b_level = planck_band(pk.wvnlo[..., None], pk.wvnhi[..., None],
                           pk.temper, dtype)

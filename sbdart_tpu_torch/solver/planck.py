@@ -19,6 +19,7 @@ import torch
 
 from sbdart_tpu_torch.constants import C2_RADIATION, STEFAN_BOLTZMANN
 from sbdart_tpu_torch.dtypes import default_device
+from sbdart_tpu_torch.ops.graph import as_device
 
 _PI4_15 = 15.0 / math.pi**4
 # Series int_0^x t^3/(e^t-1) dt = x^3 * sum_k a_k x^k  (Bernoulli expansion)
@@ -54,8 +55,7 @@ def planck_band(wvnlo, wvnhi, temp, dtype=torch.float64) -> torch.Tensor:
     the device."""
     dev = next((a.device for a in (temp, wvnlo, wvnhi)
                 if isinstance(a, torch.Tensor)), None)
-    wvnlo, wvnhi, t = (torch.as_tensor(a, dtype=dtype, device=dev)
-                       for a in (wvnlo, wvnhi, temp))
+    wvnlo, wvnhi, t = (as_device(a, dtype, dev) for a in (wvnlo, wvnhi, temp))
     t = torch.clamp_min(t, 1e-6)
     x1 = C2_RADIATION * wvnlo / t
     x2 = C2_RADIATION * wvnhi / t
@@ -69,6 +69,6 @@ def planck_total(temp) -> torch.Tensor:
     tensor argument sets the device; any other goes to
     `dtypes.default_device()`."""
     dev = temp.device if isinstance(temp, torch.Tensor) else default_device()
-    t = torch.as_tensor(temp, dtype=torch.float64, device=dev)
+    t = as_device(temp, torch.float64, dev)
     t2 = t * t
     return (STEFAN_BOLTZMANN / math.pi) * (t2 * t2)

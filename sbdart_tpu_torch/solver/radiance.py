@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from sbdart_tpu_torch.constants import slope_tau_floor
+from sbdart_tpu_torch.ops.graph import const, index
 from sbdart_tpu_torch.solver.deltam import DeltaMResult
 from sbdart_tpu_torch.solver.legendre import legendre_assoc_norm
 
@@ -79,7 +80,7 @@ def compute_radiances(*, eig, sol, beam, thermal, dm: DeltaMResult, tau_u,
     dtype, device = like.dtype, like.device
 
     def t(x):
-        return torch.as_tensor(x, dtype=dtype, device=device)
+        return const(x, dtype, device)
 
     nmode = eig.kk.shape[-3]
     nstr = tab.ylm.shape[1]
@@ -113,8 +114,7 @@ def compute_radiances(*, eig, sol, beam, thermal, dm: DeltaMResult, tau_u,
                 * (mfac[:, None, None] / (2.0 * math.pi)))
     sz_tot = sz + x0u * beam_amp                            # [..., m, L, U]
 
-    mode0_vec = torch.zeros(nmode, dtype=dtype, device=device)
-    mode0_vec[0] = 1.0
+    mode0_vec = t(np.arange(nmode) == 0)                    # 1 on mode 0
     # thermal source at the user angles (mode 0 only): st0 + st1 t'
     if thermal is not None:
         chi_y0 = (torch.einsum("li,...Li->...Ll", wy[0], thermal.y0p)
@@ -142,12 +142,13 @@ def compute_radiances(*, eig, sol, beam, thermal, dm: DeltaMResult, tau_u,
     wmu_j = t(tab.w * tab.mu)
 
     def layer_source(idx, int_dn, int_up, int_beam, e_lay, slope):
+        ix = index(idx, device)
         return (torch.einsum("...mLj,...mLuj,...mLuj->...mLu", sol.aa,
-                             sd[..., idx, :], int_dn)
+                             sd[..., ix, :], int_dn)
                 + torch.einsum("...mLj,...mLuj,...mLuj->...mLu", sol.bb,
-                               su[..., idx, :], int_up)
-                + sz_tot[..., idx] * eb_top * int_beam
-                + st0[..., idx] * (1.0 - e_lay) + st1[..., idx] * slope)
+                               su[..., ix, :], int_up)
+                + sz_tot[..., ix] * eb_top * int_beam
+                + st0[..., ix] * (1.0 - e_lay) + st1[..., ix] * slope)
 
     def surface_start(u):
         """The upward recursion's start [..., m, U]: the reflected
@@ -193,7 +194,7 @@ def compute_radiances(*, eig, sol, beam, thermal, dm: DeltaMResult, tau_u,
             _int_away(kk[..., None, :], dtau_m[..., None], ub),
             _int_toward(inv_mu0[..., None], dtau_m[..., None], ub)[..., 0],
             e_lay, u[None, :] - (dtau_m + u[None, :]) * e_lay)
-        out_parts[..., up_idx] = _recursion(j_lay, e_lay, surface_start(u),
+        out_parts[..., index(up_idx, device)] = _recursion(j_lay, e_lay, surface_start(u),
                                             downward=False).expand(
             batchm + (nmode, dm.dtau.shape[-1] + 1, len(up_idx)))
     if len(dn_idx):
@@ -211,7 +212,7 @@ def compute_radiances(*, eig, sol, beam, thermal, dm: DeltaMResult, tau_u,
             e_lay, dtau_m - ua[None, :] * (1.0 - e_lay))
         i_top = ((fisot + top_emission)[..., None, None] * mode0_vec[:, None]
                  * torch.ones_like(ua))
-        out_parts[..., dn_idx] = _recursion(j_lay, e_lay, i_top,
+        out_parts[..., index(dn_idx, device)] = _recursion(j_lay, e_lay, i_top,
                                             downward=True).expand(
             batchm + (nmode, dm.dtau.shape[-1] + 1, len(dn_idx)))
 
@@ -251,9 +252,8 @@ def _legendre_at(x: torch.Tensor, nmom: int) -> torch.Tensor:
 def _cos_scattering_angle(mu0, phi0, umu, phi, like):
     """cos of the scattering angle between the beam and each view,
     [..., U, P]."""
-    umu_j = torch.as_tensor(umu, dtype=like.dtype, device=like.device)
-    phi_r = torch.as_tensor(np.deg2rad(phi), dtype=like.dtype,
-                            device=like.device)
+    umu_j = const(umu, like.dtype, like.device)
+    phi_r = const(np.deg2rad(phi), like.dtype, like.device)
     su = torch.sqrt(torch.clamp(1.0 - umu_j**2, 0.0, 1.0))
     s0 = torch.sqrt(torch.clamp(1.0 - mu0**2, 0.0, 1.0))
     return (
@@ -279,8 +279,7 @@ def _tms_correction(*, dm: DeltaMResult, pmom_unscaled, expbea_s, fbeam,
     like = dm.dtau
     nmom = pmom_unscaled.shape[-1]
     pl = _legendre_at(_cos_scattering_angle(mu0, phi0, umu, phi, like), nmom)
-    twol1_full = torch.as_tensor(2.0 * np.arange(nmom) + 1.0,
-                                 dtype=like.dtype, device=like.device)
+    twol1_full = const(2.0 * np.arange(nmom) + 1.0, like.dtype, like.device)
 
     # exact phase / (1-f) minus the truncated scaled phase, per layer
     f = dm.f[..., None]                                   # [..., L, 1]
@@ -305,13 +304,12 @@ def _tms_correction(*, dm: DeltaMResult, pmom_unscaled, expbea_s, fbeam,
                       dtype=like.dtype, device=like.device)
 
     def recursion(idx, downward: bool):
-        u_abs = torch.as_tensor(np.abs(umu[idx]), dtype=like.dtype,
-                                device=like.device)
+        u_abs = const(np.abs(umu[idx]), like.dtype, like.device)
         ub = u_abs[:, None]                               # [U, 1(P)]
         e_lay = torch.exp(-dtau_b / ub)                   # [..., L, U, 1]
         integ = (_int_away(inv_mu0, dtau_b, ub) if downward
                  else _int_toward(inv_mu0, dtau_b, ub))
-        j_lay = src[..., idx, :] * eb_top * integ         # [..., L, U, P]
+        j_lay = src[..., index(idx, like.device), :] * eb_top * integ         # [..., L, U, P]
         e_lay = e_lay * torch.ones_like(j_lay)
         acc = torch.zeros(j_lay.shape[:-3] + j_lay.shape[-2:],
                           dtype=like.dtype, device=like.device)
@@ -326,9 +324,11 @@ def _tms_correction(*, dm: DeltaMResult, pmom_unscaled, expbea_s, fbeam,
     up_idx = np.where(umu > 0)[0]
     dn_idx = np.where(umu < 0)[0]
     if len(up_idx) > 0:
-        out[..., up_idx, :] = recursion(up_idx, downward=False)
+        out[..., index(up_idx, like.device), :] = recursion(
+            up_idx, downward=False)
     if len(dn_idx) > 0:
-        out[..., dn_idx, :] = recursion(dn_idx, downward=True)
+        out[..., index(dn_idx, like.device), :] = recursion(
+            dn_idx, downward=True)
     return out
 
 
@@ -363,10 +363,9 @@ def _ims_correction(*, dm: DeltaMResult, pmom_unscaled, ssalb_unscaled,
     reference does.  Returns duu[..., L+1, U, P]."""
     like = dm.dtau
     nmom = pmom_unscaled.shape[-1]
-    umu_j = torch.as_tensor(umu, dtype=like.dtype, device=like.device)
+    umu_j = const(umu, like.dtype, like.device)
     pl = _legendre_at(_cos_scattering_angle(mu0, phi0, umu, phi, like), nmom)
-    twol1_full = torch.as_tensor(2.0 * np.arange(nmom) + 1.0,
-                                 dtype=like.dtype, device=like.device)
+    twol1_full = const(2.0 * np.arange(nmom) + 1.0, like.dtype, like.device)
 
     w = ssalb_unscaled
     dt = dm.dtau_unscaled
@@ -382,7 +381,7 @@ def _ims_correction(*, dm: DeltaMResult, pmom_unscaled, ssalb_unscaled,
     gbar_c = _cumsum0(pmom_unscaled * (w * dt)[..., None], dim=-2)
     denom = torch.clamp_min(fbar_c, tiny)[..., None]
     gbar = torch.clamp(gbar_c / denom, 0.0, 1.0)
-    kmask = torch.as_tensor(np.arange(nmom) >= nstr, device=like.device)
+    kmask = const(np.arange(nmom) >= nstr, None, like.device)
     gfac = torch.where(kmask, 2.0 * gbar - gbar * gbar, 1.0)
 
     # pspike[..., v, U, P] = sum_K gfac_K (2K+1) P_K(cosang)

@@ -45,6 +45,7 @@ from sbdart_tpu_torch.kernels.radsrc import (
     rad_source_lane,
     rad_source_lane_plain,
 )
+from sbdart_tpu_torch.ops.graph import const, index
 from sbdart_tpu_torch.solver.deltam import apply_deltam
 from sbdart_tpu_torch.solver.disort import RteOutputs
 from sbdart_tpu_torch.solver.eig import angular_tables
@@ -88,7 +89,7 @@ def solve_rte_radiance_lane(dtauc, ssalb_in, pmom, *, nstr, fbeam, umu0,
     lb = nlyr * bc
 
     def t(x):
-        return torch.as_tensor(x, dtype=dtype, device=device)
+        return const(x, dtype, device)
 
     tab = angular_tables(nstr, nm)
     mu = t(tab.mu)
@@ -214,8 +215,7 @@ def solve_rte_radiance_lane(dtauc, ssalb_in, pmom, *, nstr, fbeam, umu0,
     # every mode through per-mode Fourier reflection matrices) -------------
     beam_flux_surf = (mu0 * torch.where(has_beam, fbeam, 0.0)
                       * expbea_s[..., -1])
-    mode0 = torch.zeros(nm, dtype=dtype, device=device)
-    mode0[0] = 1.0
+    mode0 = t(np.arange(nm) == 0)                           # 1 on mode 0
     ones_n = torch.ones((n, 1, 1), dtype=dtype, device=device)
     if brdf is None:
         refl_op = (
@@ -409,13 +409,14 @@ def solve_rte_radiance_lane(dtauc, ssalb_in, pmom, *, nstr, fbeam, umu0,
         umu[idx]: bottom -> top from the surface start, or top -> bottom
         from the top illumination."""
         ub = t(np.abs(umu[idx]))[None, :, None, None]
+        ix = index(idx, device)
         e_lay = torch.exp(-dtau_r / ub)                     # [L, U', 1, Bc]
         if downward:
             slope = dtau_r - ub * (1.0 - e_lay)
         else:
             slope = ub - (dtau_r + ub) * e_lay
-        j_lay = (jt[:, idx] + st0[:, idx] * (1.0 - e_lay)
-                 + st1[:, idx] * slope)                     # [L, U', P, Bc]
+        j_lay = (jt[:, ix] + st0[:, ix] * (1.0 - e_lay)
+                 + st1[:, ix] * slope)                     # [L, U', P, Bc]
         e_b = e_lay.expand(j_lay.shape)
         if downward:
             carry = i_top0[None, None, :].expand(len(idx), nphi, bc)
@@ -435,9 +436,11 @@ def solve_rte_radiance_lane(dtauc, ssalb_in, pmom, *, nstr, fbeam, umu0,
     out_parts = torch.zeros((nlyr + 1, numu, nphi, bc), dtype=dtype,
                             device=device)
     if len(up_idx):
-        out_parts[:, up_idx] = recursion(up_idx, downward=False)
+        out_parts[:, index(up_idx, device)] = recursion(up_idx,
+                                                        downward=False)
     if len(dn_idx):
-        out_parts[:, dn_idx] = recursion(dn_idx, downward=True)
+        out_parts[:, index(dn_idx, device)] = recursion(dn_idx,
+                                                        downward=True)
     uu = torch.movedim(out_parts, -1, 0).reshape(
         batch + (nlyr + 1, numu, nphi))
 

@@ -20,6 +20,7 @@ import torch
 
 from sbdart_tpu_torch.constants import slope_tau_floor
 from sbdart_tpu_torch.ops import lane
+from sbdart_tpu_torch.ops.graph import const as device_const
 
 
 def _ylm_at(mu0: torch.Tensor, nmode: int, nmom: int) -> torch.Tensor:
@@ -28,7 +29,7 @@ def _ylm_at(mu0: torch.Tensor, nmode: int, nmom: int) -> torch.Tensor:
     dtype, device = mu0.dtype, mu0.device
 
     def const(v):
-        return torch.tensor(v, dtype=dtype, device=device)
+        return device_const(v, dtype, device)
 
     somu2 = torch.sqrt(torch.clamp(1.0 - mu0 * mu0, 0.0, 1.0))
     rows = []
@@ -81,7 +82,7 @@ def beam_particular(cpp, cpm, ssalb, gl, fbeam, umu0, tab) -> BeamSource:
     dtype, device = gl.dtype, gl.device
 
     def t(x):
-        return torch.as_tensor(x, dtype=dtype, device=device)
+        return device_const(x, dtype, device)
 
     n = len(tab.mu)
     nmode = tab.ylm.shape[0]
@@ -149,8 +150,8 @@ def thermal_particular(cpp0, cpm0, ssalb, dtau, b_level, tab) -> ThermalSource:
     """
     dtype, device = cpp0.dtype, cpp0.device
     n = len(tab.mu)
-    mu = torch.as_tensor(tab.mu, dtype=dtype, device=device)
-    w = torch.as_tensor(tab.w, dtype=dtype, device=device)
+    mu = device_const(tab.mu, dtype, device)
+    w = device_const(tab.w, dtype, device)
     b_top = b_level[..., :-1]
     b_bot = b_level[..., 1:]
     b1 = (b_bot - b_top) / torch.clamp_min(dtau, slope_tau_floor(dtype))
