@@ -37,7 +37,14 @@ Design, as the reference's:
     re-runnable and idempotent per shard).  On a process grid the skip is
     the world's decision: a chunk is restored only where every rank holds
     its file, so ranks with disks of their own that disagree recompute it
-    together and the grid's collectives stay paired chunk for chunk.
+    together and the grid's collectives stay paired chunk for chunk;
+  * while recording (tracing.py) a call is one `batch.job` span holding
+    the deck build (`pipeline.deck`) and each column chunk's restore
+    check, parameter copy, band-chunk solves, collectives, wait for the
+    results and checkpoint write (`batch.restore_check`, `batch.params`,
+    `batch.bands`, `batch.collectives`, `batch.collect`,
+    `batch.checkpoint`); a restored chunk adds to the counter
+    `batch.restored_chunks`.
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from sbdart_tpu_torch import tracing
 from sbdart_tpu_torch.aerosols import aerosol_optical_properties
 from sbdart_tpu_torch.atmosphere import build_profile
 from sbdart_tpu_torch.clouds import (
@@ -152,76 +160,80 @@ def build_batch_fn(cfg: Config, *, band_chunk: int = 32, dtype=None,
 
     fn(params) -> (fdir, fdn, fup) each [C, nlev] on the device,
     spectrally integrated with the filter weighting; `params` is a dict of
-    [C] arrays, C a multiple of the grid's `data`, the same on every rank.
+    [C] arrays, C a multiple of the grid's `data`, the same on every rank
+    (keyword arguments label fn's spans, sbdart_tpu_torch/tracing.py).
     `eig_method` as in solve_rte; `device` defaults to this rank's
     (sharding.rank_device)."""
     mesh = make_mesh(1) if mesh is None else mesh
     device = rank_device() if device is None else torch.device(device)
     dtype = default_dtype(device) if dtype is None else parse_dtype(dtype)
-    if profile is None:
-        profile = build_profile(cfg)
-    profile = apply_cloud_humidity(profile, cfg)
-    wl = spectral_grid(cfg)
-    nmom = cfg.nstr + 1
-    deck = build_optical_deck(profile, cfg, wl, nmom)
+    # the host set-up, from the profile to the band tables on the card
+    with tracing.span("pipeline.deck"):
+        if profile is None:
+            profile = build_profile(cfg)
+        profile = apply_cloud_humidity(profile, cfg)
+        wl = spectral_grid(cfg)
+        nmom = cfg.nstr + 1
+        deck = build_optical_deck(profile, cfg, wl, nmom)
 
-    e0 = solar_irradiance(wl, cfg.nf)
-    filt = filter_function(cfg, wl)
-    alb = surface_albedo(cfg, wl)
-    w_int = filt * _trapz_weights(wl)
+        e0 = solar_irradiance(wl, cfg.nf)
+        filt = filter_function(cfg, wl)
+        alb = surface_albedo(cfg, wl)
+        w_int = filt * _trapz_weights(wl)
 
-    thermal = thermal_mask(cfg, wl)
-    any_thermal = bool(thermal.any())
-    wvnlo, wvnhi = band_edges_wavenumber(wl)
-    band_dlam = 1.0e4 / wvnlo - 1.0e4 / wvnhi
+        thermal = thermal_mask(cfg, wl)
+        any_thermal = bool(thermal.any())
+        wvnlo, wvnhi = band_edges_wavenumber(wl)
+        band_dlam = 1.0e4 / wvnlo - 1.0e4 / wvnhi
 
-    # scattering components for the per-column recombination
-    # ([nwl, nlyr, nmom]); cloud & aerosol moments need (w0, g)
-    mom_r = deck.tau_ray[..., None] * rayleigh_moments(nmom)
-    tau_c, w0_c, g_c = cloud_optical_properties(profile, cfg, wl)
-    tau_a, w0_a, g_a = aerosol_optical_properties(profile, cfg, wl)
-    pmaer = np.asarray([p for p in cfg.pmaer], np.float64)
-    if cfg.imomc == 4:
-        mom_c = (w0_c * tau_c)[..., None] * cloud_mie_moments(
-            profile, cfg, wl, nmom
+        # scattering components for the per-column recombination
+        # ([nwl, nlyr, nmom]); cloud & aerosol moments need (w0, g)
+        mom_r = deck.tau_ray[..., None] * rayleigh_moments(nmom)
+        tau_c, w0_c, g_c = cloud_optical_properties(profile, cfg, wl)
+        tau_a, w0_a, g_a = aerosol_optical_properties(profile, cfg, wl)
+        pmaer = np.asarray([p for p in cfg.pmaer], np.float64)
+        if cfg.imomc == 4:
+            mom_c = (w0_c * tau_c)[..., None] * cloud_mie_moments(
+                profile, cfg, wl, nmom
+            )
+        else:
+            mom_c = (w0_c * tau_c)[..., None] * component_moments(
+                g_c, cfg.imomc, nmom
+            )
+        mom_a = (w0_a * tau_a)[..., None] * component_moments(
+            g_a, cfg.imoma, nmom,
+            user_moments=pmaer if pmaer.size else None)
+
+        nwl = len(wl)
+        nchunk = -(-nwl // band_chunk)
+        nband = mesh.shape["band"]
+        if nchunk % nband:
+            # the reference's shard_map refuses uneven band shards likewise
+            raise ValueError(f"{nchunk} band chunks not divisible by band "
+                             f"axis {nband}")
+        per_rank = nchunk // nband
+        mine = slice(mesh.band_index * per_rank,
+                     (mesh.band_index + 1) * per_rank)
+        stacked = _stack_chunks(
+            dict(
+                tau_ray=deck.tau_ray, tau_gas=deck.tau_gas, wk=deck.wk,
+                tau_c=tau_c, scat_c=w0_c * tau_c, mom_c=mom_c,
+                tau_a=tau_a, scat_a=w0_a * tau_a, mom_a=mom_a,
+                mom_r=mom_r, alb=alb,
+                fbeam=e0 * cfg.solfac, w_int=w_int,
+                tmask=thermal.astype(np.float64),
+                wvnlo=wvnlo, wvnhi=wvnhi, band_dlam=band_dlam,
+            ),
+            nchunk, band_chunk,
         )
-    else:
-        mom_c = (w0_c * tau_c)[..., None] * component_moments(
-            g_c, cfg.imomc, nmom
-        )
-    mom_a = (w0_a * tau_a)[..., None] * component_moments(
-        g_a, cfg.imoma, nmom, user_moments=pmaer if pmaer.size else None
-    )
+        # this rank's band chunks go to the device once
+        stacked = {k: torch.as_tensor(v[mine], dtype=dtype, device=device)
+                   for k, v in stacked.items()}
 
-    nwl = len(wl)
-    nchunk = -(-nwl // band_chunk)
-    nband = mesh.shape["band"]
-    if nchunk % nband:
-        # the reference's shard_map refuses uneven band shards likewise
-        raise ValueError(f"{nchunk} band chunks not divisible by band axis "
-                         f"{nband}")
-    per_rank = nchunk // nband
-    mine = slice(mesh.band_index * per_rank, (mesh.band_index + 1) * per_rank)
-    stacked = _stack_chunks(
-        dict(
-            tau_ray=deck.tau_ray, tau_gas=deck.tau_gas, wk=deck.wk,
-            tau_c=tau_c, scat_c=w0_c * tau_c, mom_c=mom_c,
-            tau_a=tau_a, scat_a=w0_a * tau_a, mom_a=mom_a,
-            mom_r=mom_r, alb=alb,
-            fbeam=e0 * cfg.solfac, w_int=w_int,
-            tmask=thermal.astype(np.float64),
-            wvnlo=wvnlo, wvnhi=wvnhi, band_dlam=band_dlam,
-        ),
-        nchunk, band_chunk,
-    )
-    # this rank's band chunks go to the device once
-    stacked = {k: torch.as_tensor(v[mine], dtype=dtype, device=device)
-               for k, v in stacked.items()}
-
-    temper = torch.as_tensor(profile.t, dtype=dtype, device=device)
-    btemp = torch.as_tensor(
-        cfg.btemp if cfg.btemp > 0 else float(profile.t[-1]), dtype=dtype,
-        device=device)
+        temper = torch.as_tensor(profile.t, dtype=dtype, device=device)
+        btemp = torch.as_tensor(
+            cfg.btemp if cfg.btemp > 0 else float(profile.t[-1]),
+            dtype=dtype, device=device)
     nlev = profile.nlev
 
     def band_solve(albedo_scale, aer_scale, cld_scale, csza, gas_scale,
@@ -297,26 +309,32 @@ def build_batch_fn(cfg: Config, *, band_chunk: int = 32, dtype=None,
                 acc[j] += part[j]
         return acc
 
-    def prepare_and_run(params_np: dict) -> tuple:
+    def prepare_and_run(params_np: dict, **attrs) -> tuple:
+        """fn: this rank's columns to the device, its band chunks solved,
+        the grid's collectives; `attrs` label the spans of the three."""
         c = len(params_np["csza"])
         nd = mesh.shape["data"]
         if c % nd:
             raise ValueError(f"{c} columns not divisible by data axis {nd}")
-        lo = mesh.data_index * (c // nd)
-        params = {k: torch.as_tensor(
-            np.asarray(params_np[k])[lo:lo + c // nd], dtype=dtype,
-            device=device) for k in PARAM_NAMES}
+        with tracing.span("batch.params", **attrs):
+            lo = mesh.data_index * (c // nd)
+            params = {k: torch.as_tensor(
+                np.asarray(params_np[k])[lo:lo + c // nd], dtype=dtype,
+                device=device) for k in PARAM_NAMES}
         solver = solvers.get(c // nd)
         if solver is None:
             solver = solvers[c // nd] = CapturedCall(band_solve,
                                                      capture=capture)
-        acc = column_solve(solver, params)
+        with tracing.span("batch.bands", **attrs):
+            acc = column_solve(solver, params)
         if mesh.distributed:
-            # the only reduction: band-partial integrals summed over 'band'
-            dist.all_reduce(acc, group=mesh.band_group)
-            parts = [torch.empty_like(acc) for _ in range(nd)]
-            dist.all_gather(parts, acc, group=mesh.data_group)
-            acc = torch.cat(parts, dim=1)
+            with tracing.span("batch.collectives", **attrs):
+                # the only reduction: band-partial integrals summed over
+                # 'band'
+                dist.all_reduce(acc, group=mesh.band_group)
+                parts = [torch.empty_like(acc) for _ in range(nd)]
+                dist.all_gather(parts, acc, group=mesh.data_group)
+                acc = torch.cat(parts, dim=1)
         return acc[0], acc[1], acc[2]
 
     return prepare_and_run, dict(
@@ -397,58 +415,69 @@ def run_batch(
     host) and restores a chunk only where every rank holds its file;
     rank 0 writes run_metadata.json."""
     mesh = make_mesh(1) if mesh is None else mesh
-    ndata = mesh.shape["data"]
-    fn, meta = build_batch_fn(
-        cfg, band_chunk=band_chunk, dtype=dtype, mesh=mesh,
-        eig_method=eig_method, device=device,
-    )
-    profile = meta["profile"]
-    n = len(batch)
-    nlev = profile.nlev
-    fdir = np.zeros((n, nlev))
-    fdn = np.zeros((n, nlev))
-    fup = np.zeros((n, nlev))
-
-    rank0 = not dist.is_initialized() or dist.get_rank() == 0
-    if checkpoint_dir and rank0:
-        _write_run_metadata(checkpoint_dir, cfg, meta, n, col_chunk)
-    nchunks = -(-n // col_chunk)
-    done = 0
-    t_start = time.perf_counter()
-
-    for lo in range(0, n, col_chunk):
-        hi = min(lo + col_chunk, n)
-        ck_path = (
-            os.path.join(checkpoint_dir, f"cols_{lo}_{hi}.npz")
-            if checkpoint_dir else None
+    with tracing.span("batch.job", columns=len(batch), col_chunk=col_chunk,
+                      band_chunk=band_chunk):
+        ndata = mesh.shape["data"]
+        fn, meta = build_batch_fn(
+            cfg, band_chunk=band_chunk, dtype=dtype, mesh=mesh,
+            eig_method=eig_method, device=device,
         )
-        if ck_path and _restore(ck_path, mesh, meta["device"]):
-            with np.load(ck_path) as z:  # resume: skip finished shards
-                fdir[lo:hi], fdn[lo:hi], fup[lo:hi] = z["fdir"], z["fdn"], z["fup"]
+        profile = meta["profile"]
+        n = len(batch)
+        nlev = profile.nlev
+        fdir = np.zeros((n, nlev))
+        fdn = np.zeros((n, nlev))
+        fup = np.zeros((n, nlev))
+
+        rank0 = not dist.is_initialized() or dist.get_rank() == 0
+        if checkpoint_dir and rank0:
+            _write_run_metadata(checkpoint_dir, cfg, meta, n, col_chunk)
+        nchunks = -(-n // col_chunk)
+        done = solved = 0
+        t_start = time.perf_counter()
+
+        for lo in range(0, n, col_chunk):
+            hi = min(lo + col_chunk, n)
+            ck_path = (
+                os.path.join(checkpoint_dir, f"cols_{lo}_{hi}.npz")
+                if checkpoint_dir else None
+            )
+            if ck_path:
+                with tracing.span("batch.restore_check", lo=lo, hi=hi):
+                    restore = _restore(ck_path, mesh, meta["device"])
+                if restore:
+                    with np.load(ck_path) as z:  # resume: skip finished shards
+                        fdir[lo:hi], fdn[lo:hi], fup[lo:hi] = (
+                            z["fdir"], z["fdn"], z["fup"])
+                    done += 1
+                    tracing.count("batch.restored_chunks")
+                    log.info("chunk %d/%d cols %d-%d: restored from "
+                             "checkpoint", done, nchunks, lo, hi)
+                    continue
+            sl = batch.slice(lo, hi)
+            params = dict(
+                csza=sl.csza, gas_scale=sl.gas_scale, cld_scale=sl.cld_scale,
+                aer_scale=sl.aer_scale, albedo_scale=sl.albedo_scale,
+            )
+            # pad the column axis to the data-grid multiple
+            npad = {k: pad_to_multiple(np.asarray(v), ndata)[0]
+                    for k, v in params.items()}
+            a_dir, a_dn, a_up = fn(npad, lo=lo, hi=hi)
+            m = hi - lo
+            with tracing.span("batch.collect", lo=lo, hi=hi):
+                fdir[lo:hi] = a_dir[:m].cpu().numpy()
+                fdn[lo:hi] = a_dn[:m].cpu().numpy()
+                fup[lo:hi] = a_up[:m].cpu().numpy()
+            if ck_path:
+                with tracing.span("batch.checkpoint", lo=lo, hi=hi):
+                    os.makedirs(checkpoint_dir, exist_ok=True)
+                    _save_checkpoint(ck_path, fdir=fdir[lo:hi], fdn=fdn[lo:hi],
+                                     fup=fup[lo:hi])
             done += 1
-            log.info("chunk %d/%d cols %d-%d: restored from checkpoint",
-                     done, nchunks, lo, hi)
-            continue
-        sl = batch.slice(lo, hi)
-        params = dict(
-            csza=sl.csza, gas_scale=sl.gas_scale, cld_scale=sl.cld_scale,
-            aer_scale=sl.aer_scale, albedo_scale=sl.albedo_scale,
-        )
-        # pad the column axis to the data-grid multiple
-        npad = {k: pad_to_multiple(np.asarray(v), ndata)[0]
-                for k, v in params.items()}
-        a_dir, a_dn, a_up = fn(npad)
-        m = hi - lo
-        fdir[lo:hi] = a_dir[:m].cpu().numpy()
-        fdn[lo:hi] = a_dn[:m].cpu().numpy()
-        fup[lo:hi] = a_up[:m].cpu().numpy()
-        if ck_path:
-            os.makedirs(checkpoint_dir, exist_ok=True)
-            _save_checkpoint(ck_path, fdir=fdir[lo:hi], fdn=fdn[lo:hi],
-                             fup=fup[lo:hi])
-        done += 1
-        rate = (done * col_chunk) / max(time.perf_counter() - t_start, 1e-9)
-        log.info("chunk %d/%d cols %d-%d done (%.1f cols/s)",
-                 done, nchunks, lo, hi, rate)
+            solved += m
+            # the columns this call solved: restored ones are not counted
+            rate = solved / max(time.perf_counter() - t_start, 1e-9)
+            log.info("chunk %d/%d cols %d-%d done (%.1f cols/s)",
+                     done, nchunks, lo, hi, rate)
 
-    return BatchResult(fdir, fdn, fup, batch.csza, profile.z)
+        return BatchResult(fdir, fdn, fup, batch.csza, profile.z)

@@ -52,6 +52,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from sbdart_tpu_torch import tracing
+
 POOL_SHARE = 0.25
 _consts: dict = {}
 
@@ -153,7 +155,10 @@ class CapturedCall:
     seconds), `pool_bytes` (the device memory the graph's private pool
     reserved), `replays`, and `node_count()`.  `before_capture`, where
     set, is called with the device just before the capture
-    (graph_cache's trim)."""
+    (graph_cache's trim).  Spans (tracing.py): `graph.warmup`,
+    `graph.capture` (instantiate included), `graph.replay` (the input
+    copies and the replay) and `graph.eager`; counters `graph.captures`,
+    `graph.replays` and `graph.eager_calls`."""
 
     def __init__(self, fn: Callable, *, capture: bool):
         self.fn = fn
@@ -174,12 +179,18 @@ class CapturedCall:
     def __call__(self, inputs: dict):
         self.calls += 1
         if not self.capture:
-            return self.fn(**inputs)
+            tracing.count("graph.eager_calls")
+            with tracing.span("graph.eager"):
+                return self.fn(**inputs)
         if self.calls == 1:
-            return self._warm_up(inputs)
+            with tracing.span("graph.warmup"):
+                return self._warm_up(inputs)
         if self.graph is None:
-            self._capture(inputs)
-        else:
+            with tracing.span("graph.capture"):
+                self._capture(inputs)
+            tracing.count("graph.captures")
+            inputs = {}         # the capture's static inputs hold them
+        with tracing.span("graph.replay"):
             for k, v in inputs.items():
                 dst = self.static_in[k]
                 if v.shape != dst.shape or v.dtype != dst.dtype:
@@ -188,8 +199,9 @@ class CapturedCall:
                         f"{v.dtype} is not the captured {tuple(dst.shape)} "
                         f"{dst.dtype}")
                 dst.copy_(v)
-        self.graph.replay()
+            self.graph.replay()
         self.replays += 1
+        tracing.count("graph.replays")
         for f, d in self.deltas:
             f.launches += d
         return self.static_out

@@ -15,6 +15,9 @@ there is no JAX, so the repo conftest is left out):
     eager solve.
   * run_pipeline and run_batch (with a resume) through their captured
     solvers against the same runs with capture ruled out.
+  * run_batch's spans: one warm-up and one capture per column-chunk
+    shape, the replay counter equal to the profiler's graph launches;
+    a span holds its kernel's interval on the card (tracing.py's clock).
   * A route outside the rule runs eagerly and says why.
   * A replay stays equal to eager after constants past any count are
     made, and after the constant cache is emptied and its memory handed
@@ -189,6 +192,94 @@ def test_run_batch_replays_equal_eager_with_resume(cuda_device, tmp_path):
     for f in ("fdir", "fdn", "fup"):
         np.testing.assert_array_equal(getattr(res, f), getattr(want, f))
         np.testing.assert_array_equal(getattr(res2, f), getattr(want, f))
+
+
+@pytest.mark.cuda
+def test_run_batch_spans_a_warmup_and_a_capture_per_shape(cuda_device):
+    """Column chunks of 8, 8, 8, 8 and 4 columns: one graph.warmup and
+    one graph.capture per shape; the graph.replays counter moves by the
+    profiler's count of cudaGraphLaunch calls; the call's device
+    operations lie inside its batch.job span."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sbdart_tpu_torch import tracing
+    from sbdart_tpu_torch.batch import ColumnBatch, run_batch
+    from sbdart_tpu_torch.config import Config
+
+    rng = np.random.default_rng(6)
+    batch = ColumnBatch(csza=rng.uniform(0.2, 1.0, 36),
+                        gas_scale=rng.uniform(0.8, 1.2, 36))
+    tracing.clear()
+    before = tracing.counters().get("graph.replays", 0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof:
+        run_batch(Config(**BATCH_CFG), batch, band_chunk=4, col_chunk=8)
+        torch.cuda.synchronize()
+    got = tracing.spans()
+    bands = [s for s in got if s.name == "batch.bands"]
+    assert [(s.attrs["lo"], s.attrs["hi"]) for s in bands] == [
+        (0, 8), (8, 16), (16, 24), (24, 32), (32, 36)]
+    for name in ("graph.warmup", "graph.capture"):
+        spans = [s for s in got if s.name == name]
+        assert [got[s.parent].attrs["lo"] for s in spans] == [0, 32], name
+    events = prof.profiler.kineto_results.events()
+    launches = sum(e.name() == "cudaGraphLaunch" for e in events)
+    replays = tracing.counters()["graph.replays"] - before
+    assert replays == launches > 0
+    assert replays == len([s for s in got if s.name == "graph.replay"])
+    # every device operation of the call lies inside its batch.job span
+    # (the results' copies to the host wait for them), on one clock
+    (job,) = [s for s in got if s.name == "batch.job"]
+    cuda = torch.autograd.DeviceType.CUDA
+    ops = [e for e in events if e.device_type() == cuda]
+    assert ops
+    assert all(job.start_ns <= e.start_ns()
+               and e.start_ns() + e.duration_ns() <= job.end_ns
+               for e in ops)
+    tracing.clear()
+
+
+KERNEL_IN_A_SPAN = """
+import torch
+from torch.profiler import ProfilerActivity, profile
+from sbdart_tpu_torch import tracing
+
+a = torch.randn(1024, 1024, device="cuda")
+torch.mm(a, a)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+    with tracing.span("matmul"):
+        torch.mm(a, a)
+        torch.cuda.synchronize()
+(s,) = tracing.spans()
+cuda = torch.autograd.DeviceType.CUDA
+kernels = [e for e in p.profiler.kineto_results.events()
+           if e.device_type() == cuda and e.name() != "matmul"]
+assert kernels, "the profiler recorded no kernel"
+for e in kernels:
+    assert s.start_ns <= e.start_ns(), (e.name(), s.start_ns, e.start_ns())
+    assert e.start_ns() + e.duration_ns() <= s.end_ns, e.name()
+print("KERNELS", len(kernels))
+"""
+
+
+@pytest.mark.cuda
+def test_a_span_holds_the_device_interval_of_its_kernel(cuda_device):
+    """A span around a kernel and the synchronize after it lies around
+    the kernel's interval on the card, on the profiler's clock.  In a
+    process of its own: on the H100 under torch 2.11 a profile taken
+    after a run_batch (graphs captured) in the same process recorded no
+    cuBLAS kernel, while run_batch's own operations show (the test
+    above)."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", KERNEL_IN_A_SPAN], cwd=root,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "KERNELS" in r.stdout
 
 
 @pytest.mark.cuda

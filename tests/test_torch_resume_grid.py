@@ -16,6 +16,10 @@ bit however the ranks' directories disagree:
   * a directory of its own per rank, one of them empty: every rank
     recomputes every chunk.
 
+Each recomputed chunk runs the grid's collectives inside one
+`batch.collectives` span (sbdart_tpu_torch/tracing.py), which every run
+records.
+
 A rank that decided alone would skip chunks its partners recompute, and
 the grid's collectives would pair different chunks (wrong sums) or wait
 for a partner that has finished (a hang, which the deadline turns into a
@@ -33,6 +37,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from sbdart_tpu_torch import tracing
 from sbdart_tpu_torch.batch import ColumnBatch, run_batch
 from sbdart_tpu_torch.config import Config
 from sbdart_tpu_torch.sharding import init_distributed, make_mesh
@@ -88,13 +93,19 @@ def _worker(rank, world, n_band, init_file, root):
         state = {}
 
         def run(tag, ck):
-            res = run_batch(Config(**CFG), batch(NCOLS), mesh=mesh,
-                            band_chunk=BAND_CHUNK, col_chunk=COL_CHUNK,
-                            checkpoint_dir=ck, dtype=torch.float64)
+            tracing.clear()
+            with tracing.recording():
+                res = run_batch(Config(**CFG), batch(NCOLS), mesh=mesh,
+                                band_chunk=BAND_CHUNK, col_chunk=COL_CHUNK,
+                                checkpoint_dir=ck, dtype=torch.float64)
             np.savez(os.path.join(root, f"r{rank}_{tag}.npz"),
                      **{f: getattr(res, f) for f in FIELDS})
             dist.barrier()          # every rank's writes to a shared dir done
-            state[tag] = dict(files=listing(ck), ino=inodes(ck))
+            state[tag] = dict(
+                files=listing(ck), ino=inodes(ck),
+                spans=[[s.name, s.attrs.get("lo"), s.attrs.get("hi")]
+                       for s in tracing.spans()],
+                restored=tracing.counters().get("batch.restored_chunks", 0))
 
         run("first_own", own)
         run("first_shared", shared)
@@ -220,3 +231,25 @@ def test_resume_with_one_rank_dir_empty_recomputes_all(grid):
             before, after = states[rank]["before_empty"], states[rank][
                 "empty"]["ino"]
             assert all(after[f] != before[f] for f in FILES)
+
+
+def test_collectives_span_each_recomputed_chunk(grid):
+    """The grid's all-reduce and all-gather run inside one
+    `batch.collectives` span per recomputed column chunk, between its
+    band chunks' solves and the wait for its results; restored chunks
+    run none and are counted."""
+    world, _, states = grid
+    chunks = [[0, 3], [3, 6], [6, 7]]
+    for rank in range(world):
+        for tag, solved in (("first_own", chunks), ("shared", []),
+                            ("disagree", chunks[-1:]),
+                            ("empty", chunks)):
+            spans = states[rank][tag]["spans"]
+            collectives = [s[1:] for s in spans
+                           if s[0] == "batch.collectives"]
+            assert collectives == solved, (rank, tag)
+            assert states[rank][tag]["restored"] == 3 - len(solved)
+            phases = [s[0] for s in spans if s[0] in (
+                "batch.bands", "batch.collectives", "batch.collect")]
+            assert phases == ["batch.bands", "batch.collectives",
+                              "batch.collect"] * len(solved), (rank, tag)
