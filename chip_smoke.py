@@ -67,7 +67,10 @@ Phases, one JSON line each; the first failure exits non-zero:
               with the first N each kernel's whole column and its system
               alone no longer fit, then B5, B6 and B10 at the first of
               those and at nstr = 128, 3 layers x 3 columns with a NaN
-              column: their far instances);
+              column: their far instances); P1 (the Planck band
+              integral) at a config 5 band chunk's level field [1024, 32,
+              3, 33] and emission [1024, 32, 3], on the stride-0 views the
+              solve passes it, and at 130 columns;
   4. solve    solve_rte in float32 through the kernels against the plain
               path on the card (max-abs error / max-abs <= 5e-4), with
               band-columns/s for both, and the kernel path's device time
@@ -446,7 +449,7 @@ def kernel_operands(prob):
     fe = fluxlane.front_end(*args, fbeam=kw["fbeam"], umu0=kw["umu0"],
                             deltam=True, kernels=False)
     sysm = fluxlane.bvp_system(fe, fbeam=kw["fbeam"], fisot=kw["fisot"],
-                               albedo=kw["albedo"])
+                               albedo=kw["albedo"], kernels=False)
     b2_ops = (fe.gp, fe.gm, fe.ee, sysm.refl, sysm.rhs)
     return b1_ops, use_dm, fe.tab, b2_ops
 
@@ -469,7 +472,7 @@ def general_kernel_operands(prob, nstr):
         front = fluxlane.general_operands(fe.dm, fe.tab, mu0, scale_row)
         extra = (fe.tab.mu, fe.tab.w)
     sysm = fluxlane.bvp_system(fe, fbeam=kw["fbeam"], fisot=kw["fisot"],
-                               albedo=kw["albedo"], planck=pk)
+                               albedo=kw["albedo"], planck=pk, kernels=False)
     front = tuple(x.contiguous() for x in front) + extra
     return front, (fe.gp, fe.gm, fe.ee, sysm.refl, sysm.rhs)
 
@@ -632,6 +635,8 @@ def flops_of(kname, args):
     from sbdart_tpu_torch.kernels.eig_beam import SWEEPS_F32
 
     kname = GROUP_OF.get(kname, kname)
+    if kname == "planck_band":
+        return planck_flops(*args)
     if kname in ("eig_n2_deltam", "eig_n2_scatter"):
         lanes = args[0].numel()
         return (250 if kname == "eig_n2_deltam" else 230) * lanes
@@ -689,7 +694,12 @@ def bound_of(kname, args, outs):
     for t in list(args) + list(outs):
         if isinstance(t, torch.Tensor) and t.data_ptr() not in seen:
             seen.add(t.data_ptr())
-            nbytes += t.numel() * t.element_size()
+            n = t.numel()
+            if kname == "planck_band":
+                # P1 reads its stride-0 views in place: each element once
+                n = math.prod(size for size, stride
+                              in zip(t.shape, t.stride()) if stride)
+            nbytes += n * t.element_size()
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / F32_FLOPS_PER_S
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
@@ -1021,6 +1031,89 @@ def phase_kernels_bvp_n2(device, reps):
                 time_kernel(row, kern, plain, reps, plain_reps)
             rows.append(row)
         emit({"phase": "kernel", "nstr": 4, "layers": 65, "columns": b,
+              "bar": KERNEL_BAR, "results": rows})
+    return summary
+
+
+def c5_planck_chunk(device, ncol=C5_COL_CHUNK, nband=C5_BAND_CHUNK, nk=NK,
+                    nlev=33, seed=0):
+    """A config 5 band chunk's Planck inputs as the batch hands them to
+    solve_rte: band edges [1, B, 1] over 250-40,000 cm^-1 (20 cm^-1 wide)
+    and a [1, B, 1, L+1] temperature 200-300 K at its 33 levels (32
+    layers), with the solar bands
+    (every third here) at the 1e-4 K mask, each expanded (stride 0) to
+    the batch [ncol, B, nk]: (wvnlo, wvnhi, temper, the thermal mask)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    lo = 250.0 + 39750.0 * torch.rand((1, nband, 1), generator=gen,
+                                      device=device)
+    hi = lo + 20.0
+    prof = 200.0 + 100.0 * torch.rand((nlev,), generator=gen, device=device)
+    thermal = (torch.arange(nband, device=device) % 3 != 0)[None, :, None]
+    temper = torch.where(thermal[..., None], prof, 1e-4)
+    batch = (ncol, nband, nk)
+    return (lo.expand(batch), hi.expand(batch),
+            temper.expand(batch + (nlev,)), thermal.expand(batch))
+
+
+def planck_operands(device, **chunk):
+    """P1's two calls of a c5 band-chunk solve, as fluxlane._thermal makes
+    them: {"level": the level field's (wvnlo, wvnhi, temper) [C, B, k,
+    L+1], "emission": the surface emission's [C, B, k]}."""
+    import torch
+
+    lo, hi, temper, thermal = c5_planck_chunk(device, **chunk)
+    btemp = torch.where(thermal, 290.0, 1e-4)
+    btemp_eff = torch.where(btemp > 0, btemp, temper[..., -1])
+    return {"level": (lo[..., None], hi[..., None], temper),
+            "emission": (lo, hi, btemp_eff)}
+
+
+def planck_flops(wvnlo, wvnhi, temp):
+    """P1's operations on these inputs, by the branch each x = c2 nu / T
+    takes (an expf counted as one): 22 on the power series, 2 + 16 x 12
+    + 2 on the exponential one, and 9 an element around them."""
+    import torch
+
+    from sbdart_tpu_torch.constants import C2_RADIATION
+
+    t = torch.clamp_min(temp.float(), 1e-6)
+    n = torch.broadcast_shapes(wvnlo.shape, wvnhi.shape, temp.shape).numel()
+    nexp = sum(int((C2_RADIATION * w.float() / t > 1.0).sum())
+               for w in (wvnlo, wvnhi))
+    return (2 * n - nexp) * 22 + nexp * (2 + 16 * 12 + 2) + n * 9
+
+
+def phase_kernels_planck(device, reps):
+    """P1 against its plain version at a c5 band chunk's two shapes (the
+    level field [1024, 32, 3, 33] and the emission [1024, 32, 3]), on the
+    stride-0 views the solve passes it, and on 130 columns; the level
+    field's times are the kernels summary's."""
+    import torch
+
+    from sbdart_tpu_torch.kernels.planck import planck_band, planck_band_plain
+
+    summary = {}
+    for ncol in (C5_COL_CHUNK, 130):
+        rows = []
+        for shape, args in planck_operands(device, ncol=ncol).items():
+            def kern(a=args):
+                return planck_band(*a, torch.float32)
+
+            def plain(a=args):
+                return planck_band_plain(*a, torch.float32)
+
+            row = check_kernel("planck_band", ("b",), kern, plain, ncol,
+                               args)
+            row["shape"] = shape
+            main = ncol == C5_COL_CHUNK
+            if main:
+                time_kernel(row, kern, plain, reps, max(3, reps // 2))
+            fold(summary, row, main=main and shape == "level")
+            rows.append(row)
+        emit({"phase": "kernel", "path": "planck", "columns": ncol,
+              "bands": C5_BAND_CHUNK, "k_terms": NK, "levels": NLYR,
               "bar": KERNEL_BAR, "results": rows})
     return summary
 
@@ -2691,6 +2784,8 @@ KERNELS = {   # name: (wrapper module, wrapper, source, the TPU kernel,
                            "block_thomas.cu",
                            "sbdart_tpu/pallas/blocktri.py:93",
                            "block_thomas_(group|rows)_kernel"),
+    "planck_band": ("planck", "planck_band", "planck_band.cu",
+                    "none (port only)", "planck_band_kernel"),
 }
 
 
@@ -2806,7 +2901,8 @@ def main() -> int:
                  phase_kernels_group(device, reps=5),
                  phase_kernels_rt_rule(device, reps=10),
                  phase_kernels_bt_rule(device, reps=5),
-                 phase_kernels_far(device)):
+                 phase_kernels_far(device),
+                 phase_kernels_planck(device, reps=10)):
         merge(summary, part)
     t_kernels = time.perf_counter() - t0
 
@@ -2825,7 +2921,7 @@ def main() -> int:
              owned=("eig_beam", "blocktri_rt_fwd_group",
                     "blocktri_rt_bwd_group")),
         cell(phase_solve, 10, "nstr4-thermal-33L",
-             owned=("eig_n2_scatter", "blocktri_rt_n2")),
+             owned=("eig_n2_scatter", "blocktri_rt_n2", "planck_band")),
         cell(phase_solve, 10, "nstr4-flux-65L",
              owned=("eig_n2_deltam", rt_kernel(2))),
         cell(phase_radiance, 10, "nstr4-rad-33L",
@@ -2837,10 +2933,11 @@ def main() -> int:
              owned=("eig_beam", "blocktri_rt_fwd_group",
                     "blocktri_rt_bwd_group", "radsrc")),
         cell(phase_radiance, 10, "nstr8-brdf-thermal-33L",
-             owned=("eig_beam", rt_kernel(4), "radsrc")),
+             owned=("eig_beam", rt_kernel(4), "radsrc", "planck_band")),
         (phase_cli, ("eig_n2_deltam", "blocktri_rt_n2")),
-        (phase_cli_config2, ("eig_n2_scatter", "blocktri_rt_n2")),
-        (phase_cli_config3, ("eig_beam", rt_kernel(8))),
+        (phase_cli_config2, ("eig_n2_scatter", "blocktri_rt_n2",
+                             "planck_band")),
+        (phase_cli_config3, ("eig_beam", rt_kernel(8), "planck_band")),
         (phase_cli_config4, ("eig_beam", rt_kernel(8), "radsrc")),
         cell(phase_generic, 3, "G1",
              owned=("eig_chain", "blocktri_rt_fwd_group",
@@ -2848,7 +2945,7 @@ def main() -> int:
         cell(phase_generic, 5, "G2", owned=("eig_chain", rt_kernel(4))),
         cell(phase_generic, 5, "G2-scan", owned=("eig_chain", bt_kernel(8))),
         cell(phase_generic, 5, "G3", owned=("eig_chain", "blocktri_rt_n2")),
-        cell(phase_generic, 5, "G4", owned=(rt_kernel(3),)),
+        cell(phase_generic, 5, "G4", owned=(rt_kernel(3), "planck_band")),
         cell(phase_generic, 5, "G5", owned=(rt_kernel(5),)),
         cell(phase_generic, 5, "G6", owned=("eig_beam", rt_kernel(4))),
         (lambda: phase_cli_config4(nstr=10), (rt_kernel(5),)),
@@ -2865,11 +2962,12 @@ def main() -> int:
         cell(phase_generic, 1, "G10-scan", bar=0.0,
              owned=("block_thomas_group",)),
         (phase_albtrn, ("eig_n2_deltam", "blocktri_rt_n2")),
-        (lambda: phase_batch(device), ("eig_n2_scatter", "blocktri_rt_n2")),
+        (lambda: phase_batch(device),
+         ("eig_n2_scatter", "blocktri_rt_n2", "planck_band")),
         (lambda: phase_batch_solar(device),
          ("eig_n2_deltam", "blocktri_rt_n2")),
         (lambda: phase_distributed(device),
-         ("eig_n2_scatter", "blocktri_rt_n2")),
+         ("eig_n2_scatter", "blocktri_rt_n2", "planck_band")),
     ]
     launches = dict.fromkeys(KERNELS, 0)
     walls = []

@@ -188,6 +188,7 @@ def solve_rte_generic(dtauc, ssalb_in, pmom, *, nstr, fbeam, umu0, phi0,
     the PlanckInputs (None: no thermal source); `kernels` picks the kernel
     wrappers over their plain versions on the float32 route; `bvp_method`
     as in solve_rte."""
+    from sbdart_tpu_torch.kernels.planck import planck_band, planck_band_plain
     from sbdart_tpu_torch.solver import bvp as bvp_mod
     from sbdart_tpu_torch.solver.deltam import apply_deltam
     from sbdart_tpu_torch.solver.eig import (
@@ -196,7 +197,6 @@ def solve_rte_generic(dtauc, ssalb_in, pmom, *, nstr, fbeam, umu0, phi0,
         solve_eigen_beam_fused,
     )
     from sbdart_tpu_torch.solver.fields import fluxes
-    from sbdart_tpu_torch.solver.planck import planck_band
     from sbdart_tpu_torch.solver.sources import (
         beam_particular,
         thermal_particular,
@@ -241,8 +241,9 @@ def solve_rte_generic(dtauc, ssalb_in, pmom, *, nstr, fbeam, umu0, phi0,
     zeros = torch.zeros(batch, dtype=dtype, device=device)
     top_emission = surf_emission = zeros
     if planck is not None:
-        b_level = planck_band(planck.wvnlo[..., None],
-                              planck.wvnhi[..., None], planck.temper, dtype)
+        plk = planck_band if kernels else planck_band_plain
+        b_level = plk(planck.wvnlo[..., None], planck.wvnhi[..., None],
+                      planck.temper, dtype)
         thermal = thermal_particular(
             eig.cpp[..., 0, :, :, :], eig.cpm[..., 0, :, :, :], dm.ssalb,
             dm.dtau, b_level, tab)
@@ -250,9 +251,9 @@ def solve_rte_generic(dtauc, ssalb_in, pmom, *, nstr, fbeam, umu0, phi0,
                                 planck.temper[..., -1])
         ttemp_eff = torch.where(planck.ttemp > 0, planck.ttemp,
                                 planck.temper[..., 0])
-        surf_emission = (1.0 - albedo) * planck_band(
+        surf_emission = (1.0 - albedo) * plk(
             planck.wvnlo, planck.wvnhi, btemp_eff, dtype)
-        top_emission = planck.temis * planck_band(
+        top_emission = planck.temis * plk(
             planck.wvnlo, planck.wvnhi, ttemp_eff, dtype)
 
     part = bvp_mod.particular_at_bounds(beam, thermal, expbea_s, dm.dtau,

@@ -51,11 +51,11 @@ from sbdart_tpu_torch.kernels.eig_n2_scatter import (
     eig_beam_scatter_n2,
     eig_beam_scatter_n2_plain,
 )
+from sbdart_tpu_torch.kernels.planck import planck_band, planck_band_plain
 from sbdart_tpu_torch.ops.graph import const
 from sbdart_tpu_torch.solver.deltam import DeltaMResult, apply_deltam
 from sbdart_tpu_torch.solver.disort import RteOutputs
 from sbdart_tpu_torch.solver.eig import AngularTables, angular_tables
-from sbdart_tpu_torch.solver.planck import planck_band
 from sbdart_tpu_torch.solver.sources import _ylm_at, thermal_particular
 
 
@@ -228,10 +228,12 @@ class BvpSystem(NamedTuple):
 
 
 def bvp_system(fe: FrontEnd, *, fbeam, fisot, albedo,
-               planck: PlanckInputs | None = None) -> BvpSystem:
+               planck: PlanckInputs | None = None,
+               kernels) -> BvpSystem:
     """Particular solution at layer bounds (the thermal one added when
     `planck` is given), surface and top emission, the Lambertian surface
-    operators and the BVP right-hand side (fluxlane.py:190-274)."""
+    operators and the BVP right-hand side (fluxlane.py:190-274).
+    `kernels` picks the Planck kernel wrapper over its plain version."""
     n = fe.kk.shape[1]
     eb = fe.eb
     p_tu = fe.zp * eb[:-1, None, :]
@@ -245,7 +247,7 @@ def bvp_system(fe: FrontEnd, *, fbeam, fisot, albedo,
     b_level = None
     if planck is not None:
         b_level, semis, top_emission, (y0p, y0m, y1p, y1m) = _thermal(
-            fe, planck, albedo)
+            fe, planck, albedo, kernels)
         iso = iso + top_emission.reshape(-1)
         d_scan = fe.dtau_scan[:, None, :]
         p_tu = p_tu + y0p
@@ -276,7 +278,7 @@ def bvp_system(fe: FrontEnd, *, fbeam, fisot, albedo,
     return BvpSystem(refl, rhs, p_tu, p_td, p_bu, p_bd, b_level)
 
 
-def _thermal(fe: FrontEnd, pk: PlanckInputs, albedo):
+def _thermal(fe: FrontEnd, pk: PlanckInputs, albedo, kernels):
     """Planck at the levels, the thermal particular solution in scan
     layout, and the surface/top emission (fluxlane.py:200-243).  Planck is
     evaluated in the working dtype: float32 on the kernel path, as the
@@ -288,8 +290,8 @@ def _thermal(fe: FrontEnd, pk: PlanckInputs, albedo):
     def t(x):
         return const(x, dtype, device)
 
-    b_level = planck_band(pk.wvnlo[..., None], pk.wvnhi[..., None],
-                          pk.temper, dtype)
+    plk = planck_band if kernels else planck_band_plain
+    b_level = plk(pk.wvnlo[..., None], pk.wvnhi[..., None], pk.temper, dtype)
     # the thermal particular solves on the mode-0 C^pp/C^pm batch-major
     c_t = 0.5 * dm.ssalb[..., None] * t(tab.twol1) * dm.gl  # [.., L, nstr]
     ylm_j = t(tab.ylm[0])                                 # [nstr, N]
@@ -300,10 +302,8 @@ def _thermal(fe: FrontEnd, pk: PlanckInputs, albedo):
     y = tuple(to_scan(v, 2) for v in th[:4])      # Y0+-, Y1+- [L, N, B]
     btemp_eff = torch.where(pk.btemp > 0, pk.btemp, pk.temper[..., -1])
     ttemp_eff = torch.where(pk.ttemp > 0, pk.ttemp, pk.temper[..., 0])
-    surf_emission = (1.0 - albedo) * planck_band(pk.wvnlo, pk.wvnhi,
-                                                 btemp_eff, dtype)
-    top_emission = pk.temis * planck_band(pk.wvnlo, pk.wvnhi, ttemp_eff,
-                                          dtype)
+    surf_emission = (1.0 - albedo) * plk(pk.wvnlo, pk.wvnhi, btemp_eff, dtype)
+    top_emission = pk.temis * plk(pk.wvnlo, pk.wvnhi, ttemp_eff, dtype)
     n = fe.kk.shape[1]
     semis = surf_emission.reshape(-1)[None, :].expand(n, -1)
     return to_scan(b_level), semis, top_emission, y
@@ -322,7 +322,7 @@ def solve_rte_flux_lane(dtauc, ssalb_in, pmom, *, fbeam, umu0, fisot,
                    deltam=deltam, kernels=kernels, nstr=nstr,
                    planck=planck is not None, sweeps=sweeps)
     sysm = bvp_system(fe, fbeam=fbeam, fisot=fisot, albedo=albedo,
-                      planck=planck)
+                      planck=planck, kernels=kernels)
     n = nstr // 2
     xs = solve_bvp(fe.gp, fe.gm, fe.ee, sysm.refl, sysm.rhs, kernels=kernels)
     a = xs[:, :n]                                        # [L, N, Bc]

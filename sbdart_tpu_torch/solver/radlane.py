@@ -41,6 +41,7 @@ import torch
 from sbdart_tpu_torch.constants import slope_tau_floor
 from sbdart_tpu_torch.kernels.blocktri_rt_streamed import solve_bvp
 from sbdart_tpu_torch.kernels.eig_beam import SWEEPS_F32, eig_beam_chain_lane
+from sbdart_tpu_torch.kernels.planck import planck_band, planck_band_plain
 from sbdart_tpu_torch.kernels.radsrc import (
     rad_source_lane,
     rad_source_lane_plain,
@@ -51,7 +52,6 @@ from sbdart_tpu_torch.solver.disort import RteOutputs
 from sbdart_tpu_torch.solver.eig import angular_tables
 from sbdart_tpu_torch.solver.fluxlane import PlanckInputs, to_scan
 from sbdart_tpu_torch.solver.legendre import legendre_assoc_norm
-from sbdart_tpu_torch.solver.planck import planck_band
 from sbdart_tpu_torch.solver.radiance import _ims_correction, _tms_correction
 from sbdart_tpu_torch.solver.sources import _ylm_at, thermal_particular
 
@@ -180,8 +180,9 @@ def solve_rte_radiance_lane(dtauc, ssalb_in, pmom, *, nstr, fbeam, umu0,
     thermal = None
     if planck is not None:
         # Planck in the working dtype, as solver/fluxlane.py:_thermal
-        b_level = planck_band(planck.wvnlo[..., None], planck.wvnhi[..., None],
-                              planck.temper, dtype)
+        plk = planck_band if kernels else planck_band_plain
+        b_level = plk(planck.wvnlo[..., None], planck.wvnhi[..., None],
+                      planck.temper, dtype)
         # the thermal particular is azimuth-mode-0 only
         ylm0_j = t(ylm_np[0])                               # [nstr, N]
         par0_j = t(par_np[0])
@@ -206,9 +207,9 @@ def solve_rte_radiance_lane(dtauc, ssalb_in, pmom, *, nstr, fbeam, umu0,
                                 planck.temper[..., -1])
         ttemp_eff = torch.where(planck.ttemp > 0, planck.ttemp,
                                 planck.temper[..., 0])
-        surf_emission = (1.0 - albedo) * planck_band(
+        surf_emission = (1.0 - albedo) * plk(
             planck.wvnlo, planck.wvnhi, btemp_eff, dtype)
-        top_emission = planck.temis * planck_band(
+        top_emission = planck.temis * plk(
             planck.wvnlo, planck.wvnhi, ttemp_eff, dtype)
 
     # ---- surface operators (all modes: Lambertian in mode 0, BRDF in

@@ -23,11 +23,8 @@ from sbdart_tpu.solver.planck import _cum_fraction as ref_cum_fraction
 from sbdart_tpu.solver.planck import planck_band as ref_planck_band
 from sbdart_tpu.solver.planck import planck_total as ref_planck_total
 from sbdart_tpu_torch.constants import C2_RADIATION
-from sbdart_tpu_torch.solver.planck import (
-    _cum_fraction,
-    planck_band,
-    planck_total,
-)
+from sbdart_tpu_torch.kernels.planck import _cum_fraction, planck_band
+from sbdart_tpu_torch.solver.planck import planck_total
 
 
 def bands(seed=0, n=400):
