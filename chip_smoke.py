@@ -70,7 +70,11 @@ Phases, one JSON line each; the first failure exits non-zero:
               column: their far instances); P1 (the Planck band
               integral) at a config 5 band chunk's level field [1024, 32,
               3, 33] and emission [1024, 32, 3], on the stride-0 views the
-              solve passes it, and at 130 columns;
+              solve passes it, and at 130 columns; P2 (the thermal
+              particular solution) at a config 5 band chunk's 1024
+              columns x 32 bands (one card) and x 36 (the grid), 3
+              k-terms x 32 layers, at 130 columns, and at nstr 8, 12 and
+              16 on 64 columns x 4 bands;
   4. solve    solve_rte in float32 through the kernels against the plain
               path on the card (max-abs error / max-abs <= 5e-4), with
               band-columns/s for both, and the kernel path's device time
@@ -637,6 +641,8 @@ def flops_of(kname, args):
     kname = GROUP_OF.get(kname, kname)
     if kname == "planck_band":
         return planck_flops(*args)
+    if kname == "thermal_particular_scan":
+        return thermal_flops(*args)
     if kname in ("eig_n2_deltam", "eig_n2_scatter"):
         lanes = args[0].numel()
         return (250 if kname == "eig_n2_deltam" else 230) * lanes
@@ -695,8 +701,8 @@ def bound_of(kname, args, outs):
         if isinstance(t, torch.Tensor) and t.data_ptr() not in seen:
             seen.add(t.data_ptr())
             n = t.numel()
-            if kname == "planck_band":
-                # P1 reads its stride-0 views in place: each element once
+            if kname in ("planck_band", "thermal_particular_scan"):
+                # P1 and P2 read their views in place: each element once
                 n = math.prod(size for size, stride
                               in zip(t.shape, t.stride()) if stride)
             nbytes += n * t.element_size()
@@ -1115,6 +1121,101 @@ def phase_kernels_planck(device, reps):
         emit({"phase": "kernel", "path": "planck", "columns": ncol,
               "bands": C5_BAND_CHUNK, "k_terms": NK, "levels": NLYR,
               "bar": KERNEL_BAR, "results": rows})
+    return summary
+
+
+def thermal_operands(device, ncol=C5_COL_CHUNK, nband=C5_BAND_CHUNK, nk=NK,
+                     nlyr=NLYR - 1, nstr=4, seed=0, floor_share=0.0,
+                     moments=(0.0, 0.85)):
+    """P2's operands of a band-chunk solve, as fluxlane._thermal hands them
+    over: the delta-M result (ssalb, dtau [C, B, k, L], gl [C, B, k, L,
+    nstr]) of optics drawn as flux_problem's (dtau U(0.001, 0.6), ssalb
+    U(0.05, 0.999), HG moments of g drawn from `moments`), a share
+    `floor_share` of the layers at dtau 1e-9, under the float32 slope
+    floor, and b_level [C, B, k, L+1] from P1 on a c5 chunk's
+    temperatures (c5_planck_chunk, the solar bands at 1e-4 K); and the
+    angular tables of nstr."""
+    import torch
+
+    from sbdart_tpu_torch.kernels.planck import planck_band
+    from sbdart_tpu_torch.solver.deltam import apply_deltam
+    from sbdart_tpu_torch.solver.eig import angular_tables
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shape = (ncol, nband, nk, nlyr)
+
+    def u(lo, hi, *size):
+        return lo + (hi - lo) * torch.rand(size, generator=gen,
+                                           device=device)
+
+    dtau = u(0.001, 0.6, *shape)
+    if floor_share:
+        dtau = torch.where(u(0.0, 1.0, *shape) < floor_share, 1e-9, dtau)
+    ssalb = u(0.05, 0.999, *shape)
+    g = u(*moments, *shape)
+    pmom = g[..., None] ** torch.arange(nstr + 1, device=device)
+    dm = apply_deltam(dtau, ssalb, pmom, nstr)
+    lo, hi, temper, _ = c5_planck_chunk(device, ncol=ncol, nband=nband,
+                                        nk=nk, nlev=nlyr + 1, seed=seed)
+    b_level = planck_band(lo[..., None], hi[..., None], temper,
+                          torch.float32)
+    return (dm.ssalb, dm.dtau, dm.gl, b_level), angular_tables(nstr, 1)
+
+
+def thermal_flops(ssalb, dtau, gl, b_level):
+    """P2's operations on these inputs, counted from its source: per lane
+    the moments (4 nstr), C^pp/C^pm twice (8 nstr N^2), alpha -+ beta
+    (8 N^2), the right-hand sides (4 N + 6), the two pivoted solves and
+    the recombination (5 N); a division counted as one."""
+    import torch
+
+    nstr = gl.shape[-1]
+    n = nstr // 2
+    lanes = torch.broadcast_shapes(ssalb.shape, dtau.shape,
+                                   gl.shape[:-1]).numel()
+    per = (4 * nstr + 8 * nstr * n * n + 8 * n * n + 4 * n + 6
+           + _ge_flops(n, 2) + _ge_flops(n, 1) + 5 * n)
+    return lanes * per
+
+
+def phase_kernels_thermal(device, reps):
+    """P2 against its plain version at both c5 band-chunk shapes (one
+    card's 1024 columns x 32 bands and the grid's 1024 x 36, 3 k-terms x
+    32 layers, N = 2), at 130 columns, and at N = 4, 6, 8 on 64 columns;
+    the one-card shape's times are the kernels summary's."""
+    import torch
+
+    from sbdart_tpu_torch.kernels.thermal import (
+        thermal_particular_scan,
+        thermal_particular_scan_plain,
+    )
+
+    summary = {}
+    cases = [(C5_COL_CHUNK, C5_BAND_CHUNK, 4, True),
+             (C5_COL_CHUNK, 36, 4, True), (130, C5_BAND_CHUNK, 4, False),
+             (64, 4, 8, False), (64, 4, 12, False), (64, 4, 16, False)]
+    rows = []
+    for ncol, nband, nstr, timed in cases:
+        args, tab = thermal_operands(device, ncol=ncol, nband=nband,
+                                     nstr=nstr, floor_share=0.01)
+
+        def kern(a=args, tab=tab):
+            return thermal_particular_scan(*a, tab)
+
+        def plain(a=args, tab=tab):
+            return thermal_particular_scan_plain(*a, tab)
+
+        row = check_kernel("thermal_particular_scan",
+                           ("y0p", "y0m", "y1p", "y1m"), kern, plain, ncol,
+                           args)
+        row.update(columns=ncol, bands=nband, nstr=nstr)
+        if timed:
+            time_kernel(row, kern, plain, reps, max(3, reps // 2))
+        main = (ncol, nband) == (C5_COL_CHUNK, C5_BAND_CHUNK)
+        fold(summary, row, main=main)
+        rows.append(row)
+    emit({"phase": "kernel", "path": "thermal", "k_terms": NK,
+          "layers": NLYR - 1, "bar": KERNEL_BAR, "results": rows})
     return summary
 
 
@@ -2786,6 +2887,9 @@ KERNELS = {   # name: (wrapper module, wrapper, source, the TPU kernel,
                            "block_thomas_(group|rows)_kernel"),
     "planck_band": ("planck", "planck_band", "planck_band.cu",
                     "none (port only)", "planck_band_kernel"),
+    "thermal_particular_scan": ("thermal", "thermal_particular_scan",
+                                "thermal_particular.cu", "none (port only)",
+                                "thermal_particular_kernel"),
 }
 
 
@@ -2902,7 +3006,8 @@ def main() -> int:
                  phase_kernels_rt_rule(device, reps=10),
                  phase_kernels_bt_rule(device, reps=5),
                  phase_kernels_far(device),
-                 phase_kernels_planck(device, reps=10)):
+                 phase_kernels_planck(device, reps=10),
+                 phase_kernels_thermal(device, reps=10)):
         merge(summary, part)
     t_kernels = time.perf_counter() - t0
 
@@ -2921,7 +3026,8 @@ def main() -> int:
              owned=("eig_beam", "blocktri_rt_fwd_group",
                     "blocktri_rt_bwd_group")),
         cell(phase_solve, 10, "nstr4-thermal-33L",
-             owned=("eig_n2_scatter", "blocktri_rt_n2", "planck_band")),
+             owned=("eig_n2_scatter", "blocktri_rt_n2", "planck_band",
+                    "thermal_particular_scan")),
         cell(phase_solve, 10, "nstr4-flux-65L",
              owned=("eig_n2_deltam", rt_kernel(2))),
         cell(phase_radiance, 10, "nstr4-rad-33L",
@@ -2936,8 +3042,9 @@ def main() -> int:
              owned=("eig_beam", rt_kernel(4), "radsrc", "planck_band")),
         (phase_cli, ("eig_n2_deltam", "blocktri_rt_n2")),
         (phase_cli_config2, ("eig_n2_scatter", "blocktri_rt_n2",
-                             "planck_band")),
-        (phase_cli_config3, ("eig_beam", rt_kernel(8), "planck_band")),
+                             "planck_band", "thermal_particular_scan")),
+        (phase_cli_config3, ("eig_beam", rt_kernel(8), "planck_band",
+                             "thermal_particular_scan")),
         (phase_cli_config4, ("eig_beam", rt_kernel(8), "radsrc")),
         cell(phase_generic, 3, "G1",
              owned=("eig_chain", "blocktri_rt_fwd_group",
@@ -2963,11 +3070,13 @@ def main() -> int:
              owned=("block_thomas_group",)),
         (phase_albtrn, ("eig_n2_deltam", "blocktri_rt_n2")),
         (lambda: phase_batch(device),
-         ("eig_n2_scatter", "blocktri_rt_n2", "planck_band")),
+         ("eig_n2_scatter", "blocktri_rt_n2", "planck_band",
+          "thermal_particular_scan")),
         (lambda: phase_batch_solar(device),
          ("eig_n2_deltam", "blocktri_rt_n2")),
         (lambda: phase_distributed(device),
-         ("eig_n2_scatter", "blocktri_rt_n2", "planck_band")),
+         ("eig_n2_scatter", "blocktri_rt_n2", "planck_band",
+          "thermal_particular_scan")),
     ]
     launches = dict.fromkeys(KERNELS, 0)
     walls = []

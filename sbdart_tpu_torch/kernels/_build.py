@@ -31,7 +31,8 @@ SOURCES = ("eig_n2_deltam.cu", "eig_n2_scatter.cu", "eig_n2_planar.cu",
            "blocktri_rt.cu", "blocktri_rt_group.cu",
            "blocktri_rt_streamed.cu", "blocktri_rt_streamed_odd.cu",
            "blocktri_rt_streamed_group.cu", "blocktri_rt_bwd.cu",
-           "block_thomas.cu", "radsrc.cu", "planck_band.cu")
+           "block_thomas.cu", "radsrc.cu", "planck_band.cu",
+           "thermal_particular.cu")
 HEADERS = ("eig_n2_chain.cuh", "eig_chain.cuh", "eig_group.cuh",
            "solve_step.cuh", "group_solve.cuh", "blocktri_rt_streamed.cuh",
            "ring.cuh")
@@ -126,6 +127,9 @@ def library() -> ctypes.CDLL:
     lib.sbdart_radsrc.restype = _I
     lib.sbdart_planck_band.argtypes = [_P] * 4 + [_L, _I, _P, _P, _P]
     lib.sbdart_planck_band.restype = _I
+    lib.sbdart_thermal_particular.argtypes = (
+        [_P] * 5 + [_I, _I, _L, _I, _P, _P, _P])
+    lib.sbdart_thermal_particular.restype = _I
     lib.sbdart_eig_beam_group.argtypes = [_P] * 10 + [_I] * 3 + [_P, _P]
     lib.sbdart_eig_beam_group.restype = _I
     for name in ("sbdart_eig_chain", "sbdart_eig_chain_group"):

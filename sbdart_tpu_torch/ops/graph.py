@@ -127,11 +127,13 @@ def launch_counters() -> list:
         eig_n2_scatter,
         planck,
         radsrc,
+        thermal,
     )
 
     found = {}
     for mod in (blocktri, blocktri_n2, blocktri_rt, blocktri_rt_streamed,
-                eig_beam, eig_chain, eig_n2, eig_n2_scatter, planck, radsrc):
+                eig_beam, eig_chain, eig_n2, eig_n2_scatter, planck, radsrc,
+                thermal):
         for f in vars(mod).values():
             if callable(f) and hasattr(f, "launches"):
                 found[id(f)] = f

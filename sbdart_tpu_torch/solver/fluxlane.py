@@ -17,11 +17,12 @@ shape (kernels/blocktri_rt_streamed.py:solve_bvp): B2
 (kernels/blocktri_n2.py) at N = 2 up to 51 layers, B6
 (kernels/blocktri_rt_streamed.py) where the reference streams its solve
 (at N = 8 from 42 layers on, at N = 2 from 473), B5
-(kernels/blocktri_rt.py) elsewhere.  Plain torch glue does the
-rest: tau cumsums, beam exponentials, the thermal particular solution,
-the particular solution at layer bounds, the surface and top emission,
-the Lambertian surface operators, the BVP right-hand side, boundary
-intensities, fluxes, uavg and dfdt.
+(kernels/blocktri_rt.py) elsewhere.  With Planck, the thermal
+particular solution is one kernel too (kernels/thermal.py), written in
+scan layout.  Plain torch glue does the rest: tau cumsums, beam
+exponentials, the particular solution at layer bounds, the surface and
+top emission, the Lambertian surface operators, the BVP right-hand
+side, boundary intensities, fluxes, uavg and dfdt.
 
 Reference map: the DISORT call chain SOLEIG+UPBEAM+UPISOT+SETMTX+SOLVE0+
 FLUXES (disort.f) as fused kernels plus glue.
@@ -52,11 +53,15 @@ from sbdart_tpu_torch.kernels.eig_n2_scatter import (
     eig_beam_scatter_n2_plain,
 )
 from sbdart_tpu_torch.kernels.planck import planck_band, planck_band_plain
+from sbdart_tpu_torch.kernels.thermal import (
+    thermal_particular_scan,
+    thermal_particular_scan_plain,
+)
 from sbdart_tpu_torch.ops.graph import const
 from sbdart_tpu_torch.solver.deltam import DeltaMResult, apply_deltam
 from sbdart_tpu_torch.solver.disort import RteOutputs
 from sbdart_tpu_torch.solver.eig import AngularTables, angular_tables
-from sbdart_tpu_torch.solver.sources import _ylm_at, thermal_particular
+from sbdart_tpu_torch.solver.sources import _ylm_at
 
 
 def to_scan(x, nl_axis_from_end=1):
@@ -283,23 +288,16 @@ def _thermal(fe: FrontEnd, pk: PlanckInputs, albedo, kernels):
     layout, and the surface/top emission (fluxlane.py:200-243).  Planck is
     evaluated in the working dtype: float32 on the kernel path, as the
     reference's lane path does, float64 on the f64 route, as its generic
-    path does."""
+    path does.  `kernels` picks the Planck and particular-solution kernel
+    wrappers (kernels/planck.py, kernels/thermal.py) over their plain
+    versions."""
     dm, tab = fe.dm, fe.tab
-    dtype, device = dm.ssalb.dtype, dm.ssalb.device
-
-    def t(x):
-        return const(x, dtype, device)
-
+    dtype = dm.ssalb.dtype
     plk = planck_band if kernels else planck_band_plain
     b_level = plk(pk.wvnlo[..., None], pk.wvnhi[..., None], pk.temper, dtype)
-    # the thermal particular solves on the mode-0 C^pp/C^pm batch-major
-    c_t = 0.5 * dm.ssalb[..., None] * t(tab.twol1) * dm.gl  # [.., L, nstr]
-    ylm_j = t(tab.ylm[0])                                 # [nstr, N]
-    cpp_bm = torch.einsum("...Ll,li,lj->...Lij", c_t, ylm_j, ylm_j)
-    cpm_bm = torch.einsum("...Ll,l,li,lj->...Lij", c_t, t(tab.parity[0]),
-                          ylm_j, ylm_j)
-    th = thermal_particular(cpp_bm, cpm_bm, dm.ssalb, dm.dtau, b_level, tab)
-    y = tuple(to_scan(v, 2) for v in th[:4])      # Y0+-, Y1+- [L, N, B]
+    thp = (thermal_particular_scan if kernels
+           else thermal_particular_scan_plain)
+    y = thp(dm.ssalb, dm.dtau, dm.gl, b_level, tab)  # Y0+-, Y1+- [L, N, B]
     btemp_eff = torch.where(pk.btemp > 0, pk.btemp, pk.temper[..., -1])
     ttemp_eff = torch.where(pk.ttemp > 0, pk.ttemp, pk.temper[..., 0])
     surf_emission = (1.0 - albedo) * plk(pk.wvnlo, pk.wvnhi, btemp_eff, dtype)

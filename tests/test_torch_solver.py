@@ -15,8 +15,8 @@ against the JAX package's, on the same NumPy inputs.
     (measured: float64 cross-route 4.9e-8, float32 port vs reference
     7.5e-4).  Float64 is held at 1e-6, and in float32 each route is
     held to the reference's own distance from the float64 truth.
-  * nstr 4 with the thermal source, 8 solar, 12 and 16 solar and
-    thermal, on the reference's _fused_flux_problem
+  * nstr 4 with the thermal source, 8, 12 and 16 solar and thermal,
+    on the reference's _fused_flux_problem
     (tests/test_pallas_kernels.py:325-346, 6 layers x 16 columns): float32
     against its fused_interpret route at its bar 5e-4 (measured 9e-7 to
     6.7e-5), float64 against its xla route at 1e-10 (measured 3e-15 to
@@ -162,7 +162,7 @@ def fused_flux_problem(nstr, nlyr, b, planck, seed=0):
 
 PLANCK_KW = dict(planck=True, wvnlo=800.0, wvnhi=900.0, btemp=290.0)
 CASES = [(4, True), (8, False), (12, False), (12, True), (16, False),
-         (16, True)]
+         (16, True), (8, True)]
 _REF = {}
 
 

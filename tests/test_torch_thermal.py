@@ -1,6 +1,10 @@
 """The thermal particular solution and its pieces against the JAX package's:
 lsolve (branchless partial-pivoted GE), _ylm_at (Legendre at traced
-cosines) and thermal_particular, all in float64 on the same NumPy inputs.
+cosines) and thermal_particular, all in float64 on the same NumPy inputs;
+and the flux lane's scan-layout version
+(kernels/thermal.py:thermal_particular_scan_plain, the plain twin of its
+CUDA kernel: C^pp/C^pm as explicit sums over l) against the reference's
+scattering_matrices and thermal_particular, moved to scan layout.
 
 The scattering matrices are random but physical in scale: C^pp/C^pm from
 HG moments at single-scatter albedos up to a near-conservative layer
@@ -11,6 +15,7 @@ rule: agreement to 1e-12 of each output's largest magnitude.
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from sbdart_tpu.ops.lane import lsolve as ref_lsolve
@@ -18,6 +23,7 @@ from sbdart_tpu.solver.eig import angular_tables as ref_angular_tables
 from sbdart_tpu.solver.eig import scattering_matrices
 from sbdart_tpu.solver.sources import _ylm_at as ref_ylm_at
 from sbdart_tpu.solver.sources import thermal_particular as ref_thermal
+from sbdart_tpu_torch.kernels.thermal import thermal_particular_scan_plain
 from sbdart_tpu_torch.ops.lane import lsolve
 from sbdart_tpu_torch.solver.eig import angular_tables
 from sbdart_tpu_torch.solver.sources import _ylm_at, thermal_particular
@@ -90,3 +96,24 @@ def test_thermal_particular_matches_reference():
         for name, g_, r_ in zip(ref._fields, got, ref):
             assert g_.dtype == torch.float64, name
             _close(g_, r_)
+
+
+@pytest.mark.parametrize("nstr", [4, 8, 12, 16])
+def test_scan_plain_version_matches_reference(nstr):
+    """The explicit-sum twin, in float64, against the reference's einsums
+    and thermal_particular; [..., L, N] moved to [L, N, B]."""
+    tab = ref_angular_tables(nstr, 1)
+    ssalb, dtau, gl, b_level = thermal_problem(nstr, seed=nstr)
+    cpp, cpm = scattering_matrices(jnp.asarray(ssalb), jnp.asarray(gl),
+                                   tab, jnp.float64)
+    ref = ref_thermal(cpp[..., 0, :, :, :], cpm[..., 0, :, :, :],
+                      jnp.asarray(ssalb), jnp.asarray(dtau),
+                      jnp.asarray(b_level), tab, jnp.float64)
+    got = thermal_particular_scan_plain(
+        *(torch.from_numpy(a) for a in (ssalb, dtau, gl, b_level)),
+        angular_tables(nstr, 1))
+    assert got[3] is got[2]
+    for g_, r_ in zip(got, ref[:4]):
+        r_ = np.moveaxis(np.asarray(r_), -2, 0)            # [L, nbc, N]
+        assert g_.dtype == torch.float64
+        _close(g_, np.moveaxis(r_, -1, 1))
