@@ -444,16 +444,18 @@ def lane_inputs(prob):
 
 def kernel_operands(prob):
     """B1's and B2's operands as the main path builds them."""
+    from sbdart_tpu_torch.kernels import plain
     from sbdart_tpu_torch.solver import fluxlane
 
     args, kw, _ = lane_inputs(prob)
     b1_ops, use_dm = fluxlane.front_operands(
         *args, fbeam=kw["fbeam"], umu0=kw["umu0"], deltam=True)
     b1_ops = tuple(x.contiguous() for x in b1_ops)
-    fe = fluxlane.front_end(*args, fbeam=kw["fbeam"], umu0=kw["umu0"],
-                            deltam=True, kernels=False)
-    sysm = fluxlane.bvp_system(fe, fbeam=kw["fbeam"], fisot=kw["fisot"],
-                               albedo=kw["albedo"], kernels=False)
+    with plain():
+        fe = fluxlane.front_end(*args, fbeam=kw["fbeam"], umu0=kw["umu0"],
+                                deltam=True)
+        sysm = fluxlane.bvp_system(fe, fbeam=kw["fbeam"],
+                                   fisot=kw["fisot"], albedo=kw["albedo"])
     b2_ops = (fe.gp, fe.gm, fe.ee, sysm.refl, sysm.rhs)
     return b1_ops, use_dm, fe.tab, b2_ops
 
@@ -462,12 +464,14 @@ def general_kernel_operands(prob, nstr):
     """The front-end kernel's operands (B3 at nstr=4 with Planck, B4 at
     nstr >= 8, the tables appended) and the BVP kernel's (B2 or B5), as
     the main path builds them."""
+    from sbdart_tpu_torch.kernels import plain
     from sbdart_tpu_torch.solver import fluxlane
 
     args, kw, pk = lane_inputs(prob)
-    fe = fluxlane.front_end(*args, fbeam=kw["fbeam"], umu0=kw["umu0"],
-                            deltam=True, kernels=False, nstr=nstr,
-                            planck=pk is not None)
+    with plain():
+        fe = fluxlane.front_end(*args, fbeam=kw["fbeam"], umu0=kw["umu0"],
+                                deltam=True, nstr=nstr,
+                                planck=pk is not None)
     _, mu0, scale_row, mu0_row = fluxlane.beam_rows(kw["fbeam"], kw["umu0"])
     if nstr == 4:
         front = fluxlane.scatter_operands(fe.dm, scale_row, mu0_row)
@@ -475,8 +479,9 @@ def general_kernel_operands(prob, nstr):
     else:
         front = fluxlane.general_operands(fe.dm, fe.tab, mu0, scale_row)
         extra = (fe.tab.mu, fe.tab.w)
-    sysm = fluxlane.bvp_system(fe, fbeam=kw["fbeam"], fisot=kw["fisot"],
-                               albedo=kw["albedo"], planck=pk, kernels=False)
+    with plain():
+        sysm = fluxlane.bvp_system(fe, fbeam=kw["fbeam"], fisot=kw["fisot"],
+                                   albedo=kw["albedo"], planck=pk)
     front = tuple(x.contiguous() for x in front) + extra
     return front, (fe.gp, fe.gm, fe.ee, sysm.refl, sysm.rhs)
 
@@ -525,7 +530,7 @@ def radiance_kernel_operands(args, kw):
     from sbdart_tpu_torch.solver.disort import solve_rte
 
     seen = {}
-    names = ("eig_beam_chain_lane", "solve_bvp", "rad_source_lane_plain")
+    names = ("eig_beam_chain_lane", "solve_bvp", "rad_source_lane")
     saved = {n: getattr(radlane, n) for n in names}
 
     def spy(name):
@@ -553,7 +558,7 @@ def radsrc_operands(device, nstr, nlyr, nbc, umu=UMU_VIEW, **cell):
 
     args, kw = radiance_problem(nbc, nlyr, device, nstr=nstr, **cell)
     kw["umu"] = np.array(umu)
-    *src, umu = radiance_kernel_operands(args, kw)["rad_source_lane_plain"][0]
+    *src, umu = radiance_kernel_operands(args, kw)["rad_source_lane"][0]
     return tuple(src), umu
 
 
@@ -979,7 +984,7 @@ def phase_kernels_radiance(device, reps):
         flat = tuple(x.reshape((1,) + x.shape).contiguous()
                      for x in (cppl, cpml, r1, r2)) + (mu0.contiguous(),)
         main = nbc != 2
-        *src, umu = ops["rad_source_lane_plain"][0]
+        *src, umu = ops["rad_source_lane"][0]
         calls = {"radsrc": (
             ("j",), lambda: rad_source_lane(*src, umu),
             lambda: rad_source_lane_plain(*src, umu), 3, src)}
@@ -1853,8 +1858,8 @@ def captured_solve(args, kw, inputs_only=False):
     admits the request: (call, inputs), or the inputs alone."""
     import torch
 
-    from sbdart_tpu_torch.ops.graph import CapturedCall, graph_ok
-    from sbdart_tpu_torch.solver.disort import route, solve_rte
+    from sbdart_tpu_torch.ops.graph import CapturedCall
+    from sbdart_tpu_torch.solver.disort import graph_ok, route, solve_rte
 
     inputs = dict(zip(("dtauc", "ssalb", "pmom"), args))
     inputs.update((k, v) for k, v in kw.items()
@@ -1953,6 +1958,15 @@ def outputs_diff(got, want) -> dict:
     return out
 
 
+def kernel_launches() -> dict:
+    """{wrapper: launches so far} from the kernel wrappers' process
+    counters (`kernels.<wrapper>.launches`, sbdart_tpu_torch/tracing.py)."""
+    from sbdart_tpu_torch import tracing
+
+    return {k.split(".")[1]: v for k, v in tracing.counters().items()
+            if k.startswith("kernels.")}
+
+
 def graph_check(cell, path, nstr, call, inputs, eager, rec, reps, owned,
                 reason):
     """One cell's "graph" line.  Where the rule leaves the route eager
@@ -1966,22 +1980,19 @@ def graph_check(cell, path, nstr, call, inputs, eager, rec, reps, owned,
     and instantiate seconds and its pool's bytes."""
     import torch
 
-    from sbdart_tpu_torch.ops.graph import launch_counters
-
     if reason is not None:
         emit({"phase": "graph", "cell": cell, "route": path, "nstr": nstr,
               "graph": False, "reason": reason})
         return
-    counters = {f.__name__: f for f in launch_counters()}
-    before = {k: f.launches for k, f in counters.items()}
+    before = kernel_launches()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     got = call(inputs)                      # capture, instantiate, replay
     torch.cuda.synchronize()
     same = outputs_diff(got, eager)
     del got, eager
-    moved = {k: f.launches - before[k] for k, f in counters.items()
-             if f.launches != before[k]}
+    moved = {k: v - before.get(k, 0) for k, v in kernel_launches().items()
+             if v != before.get(k, 0)}
     names = {KERNELS[k][1]: k for k in KERNELS}
     missed = [k for k in owned if KERNELS[k][1] not in moved]
     _, _, f_args, f_kw = solve_cell(cell, inputs["dtauc"].device, seed=1)
@@ -2031,8 +2042,7 @@ def phase_generic(device, reps, name, bar=E2E_BAR, owned=()):
     the rule admits it (`graph_check`)."""
     import torch
 
-    from sbdart_tpu_torch.ops.graph import eager_reason
-    from sbdart_tpu_torch.solver.disort import solve_rte
+    from sbdart_tpu_torch.solver.disort import eager_reason, solve_rte
 
     path, nstr, args, kw = solve_cell(name, device)
     if path != "generic":
@@ -2102,8 +2112,7 @@ def phase_radiance(device, reps, cell, owned=()):
     (`graph_check`)."""
     import torch
 
-    from sbdart_tpu_torch.ops.graph import eager_reason
-    from sbdart_tpu_torch.solver.disort import solve_rte
+    from sbdart_tpu_torch.solver.disort import eager_reason, solve_rte
 
     path, nstr, args, kw = solve_cell(cell, device)
     nbc, nlyr = args[0].shape
@@ -2160,8 +2169,7 @@ def phase_solve(device, reps, cell, owned=()):
     (`graph_check`)."""
     import torch
 
-    from sbdart_tpu_torch.ops.graph import eager_reason
-    from sbdart_tpu_torch.solver.disort import solve_rte
+    from sbdart_tpu_torch.solver.disort import eager_reason, solve_rte
 
     path, nstr, args, kw = solve_cell(cell, device)
     nbc, _, nlyr = args[0].shape
@@ -2265,9 +2273,8 @@ def pipeline_graph_check(cfg, res, made) -> dict:
     from sbdart_tpu_torch.api import run
     from sbdart_tpu_torch.dtypes import (
         default_device, default_dtype, parse_dtype)
-    from sbdart_tpu_torch.ops.graph import eager_reason
     from sbdart_tpu_torch.pipeline import user_angles
-    from sbdart_tpu_torch.solver.disort import route
+    from sbdart_tpu_torch.solver.disort import eager_reason, route
 
     umu, phi = user_angles(cfg)
     path = route(nstr=cfg.nstr, onlyfl=umu is None, brdf=None, umu=umu,
@@ -2707,8 +2714,6 @@ def phase_distributed(device):
     import torch.distributed as dist
 
     from sbdart_tpu_torch.batch import run_batch
-    from sbdart_tpu_torch.kernels.blocktri_n2 import block_thomas_rt_n2
-    from sbdart_tpu_torch.kernels.eig_n2_scatter import eig_beam_scatter_n2
     from sbdart_tpu_torch.namelist import loads_namelist
     from sbdart_tpu_torch.sharding import (
         _local_rank,
@@ -2728,7 +2733,9 @@ def phase_distributed(device):
                                   getattr(single, f)[cols]) for f in fields)
 
     def launched():
-        return eig_beam_scatter_n2.launches + block_thomas_rt_n2.launches
+        now = kernel_launches()
+        return (now.get("eig_beam_scatter_n2", 0)
+                + now.get("block_thomas_rt_n2", 0))
 
     with tempfile.TemporaryDirectory() as tmp:
         ck = os.path.join(tmp, "ck")
@@ -2962,8 +2969,6 @@ def rt_shape_tally():
 
 
 def main() -> int:
-    import importlib
-
     import torch
 
     t_start = time.perf_counter()
@@ -3011,10 +3016,7 @@ def main() -> int:
         merge(summary, part)
     t_kernels = time.perf_counter() - t0
 
-    wrappers = {
-        k: getattr(importlib.import_module(f"sbdart_tpu_torch.kernels.{m}"), f)
-        for k, (m, f, _, _, _) in KERNELS.items()
-    }
+    wrappers = {k: f for k, (_, f, _, _, _) in KERNELS.items()}
     def cell(phase, *a, owned, **k):
         """A solve cell's phase, given the kernels its path runs."""
         return (lambda: phase(device, *a, owned=owned, **k)), owned
@@ -3082,12 +3084,13 @@ def main() -> int:
     walls = []
     with rt_shape_tally() as rt_shapes:
         for phase, owned in owners:
-            for fn in wrappers.values():
-                fn.launches = 0
+            before = kernel_launches()
             t0 = time.perf_counter()
             rec = phase()
             walls.append(round(time.perf_counter() - t0, 1))
-            counts = {k: fn.launches for k, fn in wrappers.items()}
+            now = kernel_launches()
+            counts = {k: now.get(f, 0) - before.get(f, 0)
+                      for k, f in wrappers.items()}
             missed = [k for k in owned if counts[k] == 0]
             if missed:
                 raise SmokeFailure(f"{rec['phase']} {rec.get('input', '')} "

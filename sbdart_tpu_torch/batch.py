@@ -15,7 +15,7 @@ Design, as the reference's:
     `lax.scan`), each chunk one batched solve_rte over [columns, bands,
     k-terms] adding to three accumulators; as the reference jits that
     loop, its body, one band chunk's solve, is one ops/graph.py:
-    CapturedCall per column-chunk shape where ops/graph.py:graph_ok admits
+    CapturedCall per column-chunk shape where solver/disort.py:graph_ok admits
     the route (float32 on the card): the first band chunk runs eagerly
     (the warm-up), every later one has its band tables and columns copied
     into the graph's static inputs and is replayed.  (One graph of the
@@ -69,7 +69,7 @@ from sbdart_tpu_torch.clouds import (
 )
 from sbdart_tpu_torch.config import Config
 from sbdart_tpu_torch.dtypes import default_dtype, parse_dtype
-from sbdart_tpu_torch.ops.graph import CapturedCall, graph_ok
+from sbdart_tpu_torch.ops.graph import CapturedCall
 from sbdart_tpu_torch.optics import build_optical_deck, component_moments
 from sbdart_tpu_torch.pipeline import (
     _trapz_weights,
@@ -79,7 +79,7 @@ from sbdart_tpu_torch.pipeline import (
 from sbdart_tpu_torch.rayleigh import rayleigh_moments
 from sbdart_tpu_torch.sharding import make_mesh, pad_to_multiple, rank_device
 from sbdart_tpu_torch.solar import filter_function, solar_irradiance, spectral_grid
-from sbdart_tpu_torch.solver.disort import route, solve_rte
+from sbdart_tpu_torch.solver.disort import graph_ok, route, solve_rte
 from sbdart_tpu_torch.surface import surface_albedo
 
 log = logging.getLogger("sbdart_tpu_torch.batch")

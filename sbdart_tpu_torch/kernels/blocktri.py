@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import torch
 
+from sbdart_tpu_torch import tracing
+from sbdart_tpu_torch.kernels import use_kernel
 from sbdart_tpu_torch.kernels.blocktri_rt import solve_step
 from sbdart_tpu_torch.ops.lane import lmatmul as _mm
 from sbdart_tpu_torch.ops.lane import lmatvec as _mv
@@ -102,13 +104,13 @@ def block_thomas(diag, lower, upper, rhs):
     """B10 on CUDA tensors (float32 only): the one-thread-per-column
     kernel at the m of BT_ONE_THREAD_M, `block_thomas_group` at every
     other m; the plain torch version on CPU tensors."""
-    if diag.device.type == "cpu":
+    if not use_kernel(diag):
         return block_thomas_plain(diag, lower, upper, rhs)
     if thomas_entry(diag.shape[1]) == "sbdart_block_thomas_group":
         return block_thomas_group(diag, lower, upper, rhs)
     xs = _launch("block_thomas", "sbdart_block_thomas", diag, lower, upper,
                  rhs)
-    block_thomas.launches += 1
+    tracing.count("kernels.block_thomas.launches")
     return xs
 
 
@@ -117,16 +119,12 @@ def block_thomas_group(diag, lower, upper, rhs):
     csrc/block_thomas.cu on CUDA tensors, float32 only: rows in registers
     at even m <= 8, the system in shared memory past that; the plain
     torch version on CPU tensors)."""
-    if diag.device.type == "cpu":
+    if not use_kernel(diag):
         return block_thomas_plain(diag, lower, upper, rhs)
     if diag.shape[1] < 1:
         raise ValueError(f"block_thomas_group: the kernel takes m >= 1, got "
                          f"{diag.shape[1]}")
     xs = _launch("block_thomas_group", "sbdart_block_thomas_group", diag,
                  lower, upper, rhs)
-    block_thomas_group.launches += 1
+    tracing.count("kernels.block_thomas_group.launches")
     return xs
-
-
-block_thomas.launches = 0
-block_thomas_group.launches = 0

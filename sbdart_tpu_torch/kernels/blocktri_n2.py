@@ -15,6 +15,9 @@ from __future__ import annotations
 
 import torch
 
+from sbdart_tpu_torch import tracing
+from sbdart_tpu_torch.kernels import use_kernel
+
 
 def _solve4(dt, rhs_cols):
     """Pivoted shrinking elimination (blocktri.py:_planar_solve4).
@@ -170,7 +173,7 @@ def block_thomas_rt_n2_plain(gp, gm, ee, refl, rhs):
 def block_thomas_rt_n2(gp, gm, ee, refl, rhs):
     """B2 solve: the CUDA kernel on CUDA tensors (float32 only), the plain
     torch version on CPU tensors.  Shapes as in the module doc."""
-    if gp.device.type == "cpu":
+    if not use_kernel(gp):
         return block_thomas_rt_n2_plain(gp, gm, ee, refl, rhs)
     from sbdart_tpu_torch.kernels import _build
 
@@ -196,9 +199,6 @@ def block_thomas_rt_n2(gp, gm, ee, refl, rhs):
             *(t.data_ptr() for t in ins), ws.data_ptr(), ys.data_ptr(),
             xs.data_ptr(), nlyr, b, stream,
         )
-    block_thomas_rt_n2.launches += 1
+    tracing.count("kernels.block_thomas_rt_n2.launches")
     _build.check(code, "block_thomas_rt_n2")
     return xs
-
-
-block_thomas_rt_n2.launches = 0

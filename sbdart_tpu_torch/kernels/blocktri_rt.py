@@ -28,6 +28,8 @@ from __future__ import annotations
 
 import torch
 
+from sbdart_tpu_torch import tracing
+from sbdart_tpu_torch.kernels import use_kernel
 from sbdart_tpu_torch.ops.lane import lmatmul as _mm
 from sbdart_tpu_torch.ops.lane import lmatvec as _mv
 
@@ -164,14 +166,14 @@ def block_thomas_rt(gp, gm, ee, refl, rhs):
     kernel at the N of RT_ONE_THREAD_N, `block_thomas_rt_group` at every
     other N; the plain torch version on CPU tensors.  Shapes as in the
     module doc."""
-    if gp.device.type == "cpu":
+    if not use_kernel(gp):
         return block_thomas_rt_plain(gp, gm, ee, refl, rhs)
     n = gp.shape[1]
     if n not in RT_ONE_THREAD_N:
         return block_thomas_rt_group(gp, gm, ee, refl, rhs)
     xs = _launch("block_thomas_rt", "sbdart_blocktri_rt", gp, gm, ee, refl,
                  rhs)
-    block_thomas_rt.launches += 1
+    tracing.count("kernels.block_thomas_rt.launches")
     return xs
 
 
@@ -179,16 +181,12 @@ def block_thomas_rt_group(gp, gm, ee, refl, rhs):
     """B5 on a group of lanes per column, any N (the CUDA kernel of
     csrc/blocktri_rt_group.cu on CUDA tensors, float32 only; the plain
     torch version on CPU tensors)."""
-    if gp.device.type == "cpu":
+    if not use_kernel(gp):
         return block_thomas_rt_plain(gp, gm, ee, refl, rhs)
     if gp.shape[1] < 1:
         raise ValueError(f"block_thomas_rt_group: the kernel takes N >= 1, "
                          f"got {gp.shape[1]}")
     xs = _launch("block_thomas_rt_group", "sbdart_blocktri_rt_group", gp, gm,
                  ee, refl, rhs)
-    block_thomas_rt_group.launches += 1
+    tracing.count("kernels.block_thomas_rt_group.launches")
     return xs
-
-
-block_thomas_rt.launches = 0
-block_thomas_rt_group.launches = 0

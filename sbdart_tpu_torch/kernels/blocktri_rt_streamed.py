@@ -41,15 +41,10 @@ from __future__ import annotations
 
 import torch
 
-from sbdart_tpu_torch.kernels.blocktri_n2 import (
-    block_thomas_rt_n2,
-    block_thomas_rt_n2_plain,
-)
-from sbdart_tpu_torch.kernels.blocktri_rt import (
-    block_thomas_rt,
-    block_thomas_rt_plain,
-    solve_step,
-)
+from sbdart_tpu_torch import tracing
+from sbdart_tpu_torch.kernels import use_kernel
+from sbdart_tpu_torch.kernels.blocktri_n2 import block_thomas_rt_n2
+from sbdart_tpu_torch.kernels.blocktri_rt import block_thomas_rt, solve_step
 from sbdart_tpu_torch.ops.lane import lmatmul as _mm
 from sbdart_tpu_torch.ops.lane import lmatvec as _mv
 
@@ -201,13 +196,13 @@ def block_thomas_rt_fwd(gp, gm, ee, refl, rhs):
     kernel at the N of FWD_ONE_THREAD_N (the only N it is built at) and
     `block_thomas_rt_fwd_group` at every other N; the plain torch version
     on CPU tensors.  Returns (cs, ys)."""
-    if gp.device.type == "cpu":
+    if not use_kernel(gp):
         return block_thomas_rt_fwd_plain(gp, gm, ee, refl, rhs)
     if gp.shape[1] not in FWD_ONE_THREAD_N:
         return block_thomas_rt_fwd_group(gp, gm, ee, refl, rhs)
     out = _fwd_kernel("block_thomas_rt_fwd", "sbdart_blocktri_rt_fwd", gp,
                       gm, ee, refl, rhs)
-    block_thomas_rt_fwd.launches += 1
+    tracing.count("kernels.block_thomas_rt_fwd.launches")
     return out
 
 
@@ -215,7 +210,7 @@ def block_thomas_rt_fwd_group(gp, gm, ee, refl, rhs):
     """B6 forward on a group of lanes per column, any N (the CUDA kernel of
     csrc/blocktri_rt_streamed_group.cu on CUDA tensors, float32 only; the
     plain torch version on CPU tensors).  Returns (cs, ys)."""
-    if gp.device.type == "cpu":
+    if not use_kernel(gp):
         return block_thomas_rt_fwd_plain(gp, gm, ee, refl, rhs)
     from sbdart_tpu_torch.kernels import _build
 
@@ -232,7 +227,7 @@ def block_thomas_rt_fwd_group(gp, gm, ee, refl, rhs):
     scratch = _build.group_scratch(lib, entry, n, b, gp.device)
     out = _fwd_kernel(name, entry, gp, gm, ee, refl, rhs,
                       [_build.ptr(scratch)])
-    block_thomas_rt_fwd_group.launches += 1
+    tracing.count("kernels.block_thomas_rt_fwd_group.launches")
     return out
 
 
@@ -259,7 +254,7 @@ def block_thomas_rt_bwd(gp, gm, ee, cs, ys):
     """B6 backward through its route, `bwd_entry`: on CUDA tensors
     `block_thomas_rt_bwd_group` at every N outside BWD_ONE_THREAD_N (which
     is empty); the plain torch version on CPU tensors.  Returns xs."""
-    if gp.device.type == "cpu":
+    if not use_kernel(gp):
         return block_thomas_rt_bwd_plain(gp, gm, ee, cs, ys)
     bwd_entry(gp.shape[1])   # raises where BWD_ONE_THREAD_N routes away
     return block_thomas_rt_bwd_group(gp, gm, ee, cs, ys)
@@ -270,7 +265,7 @@ def block_thomas_rt_bwd_group(gp, gm, ee, cs, ys):
     layer slot fills the card's shared memory (the CUDA kernel of
     csrc/blocktri_rt_bwd.cu on CUDA tensors, float32 only; the plain torch
     version on CPU tensors).  Returns xs."""
-    if gp.device.type == "cpu":
+    if not use_kernel(gp):
         return block_thomas_rt_bwd_plain(gp, gm, ee, cs, ys)
     from sbdart_tpu_torch.kernels import _build
 
@@ -283,7 +278,7 @@ def block_thomas_rt_bwd_group(gp, gm, ee, cs, ys):
         gp.device)
     xs = torch.empty((nlyr, 2 * n, b), device=gp.device, dtype=torch.float32)
     _launch(name, "sbdart_blocktri_rt_bwd_group", ins, [xs], nlyr, n, b)
-    block_thomas_rt_bwd_group.launches += 1
+    tracing.count("kernels.block_thomas_rt_bwd_group.launches")
     return xs
 
 
@@ -294,19 +289,13 @@ def block_thomas_rt_streamed(gp, gm, ee, refl, rhs):
         gp, gm, ee, *block_thomas_rt_fwd(gp, gm, ee, refl, rhs))
 
 
-def solve_bvp(gp, gm, ee, refl, rhs, *, kernels=True):
-    """The boundary-value solve through the kernel the reference runs at
-    this shape (`reference_route`): the kernel wrappers when `kernels`,
-    else their plain versions.  Returns xs [L, 2N, B]."""
-    route = reference_route(gp.shape[0], gp.shape[1])
+def solve_bvp(gp, gm, ee, refl, rhs):
+    """The boundary-value solve through the wrapper of the kernel the
+    reference runs at this shape (`reference_route`).  Returns xs
+    [L, 2N, B]."""
     solve = {
-        "planar": (block_thomas_rt_n2_plain, block_thomas_rt_n2),
-        "full": (block_thomas_rt_plain, block_thomas_rt),
-        "streamed": (block_thomas_rt_streamed_plain, block_thomas_rt_streamed),
-    }[route][bool(kernels)]
+        "planar": block_thomas_rt_n2,
+        "full": block_thomas_rt,
+        "streamed": block_thomas_rt_streamed,
+    }[reference_route(gp.shape[0], gp.shape[1])]
     return solve(gp, gm, ee, refl, rhs)
-
-
-block_thomas_rt_fwd.launches = 0
-block_thomas_rt_fwd_group.launches = 0
-block_thomas_rt_bwd_group.launches = 0

@@ -12,8 +12,8 @@ reduced beam system
 solved by shrinking implicit-pivot elimination (kernels/blocktri_rt.py:
 solve_step).  `eig_beam_chain` launches the CUDA kernel
 csrc/eig_beam_group.cu (a group of lanes per (layer, column), lane i on
-row i; the chain in csrc/eig_group.cuh) on CUDA tensors and runs
-`eig_beam_chain_plain` on CPU tensors.
+row i; the chain in csrc/eig_group.cuh) where kernels/__init__.py:use_kernel
+says so and runs `eig_beam_chain_plain` otherwise.
 
 `eig_beam_chain_lane` is the flat entry of the radiance path
 (pallas/eig.py:473-501), a one-layer view of the same kernel.
@@ -33,6 +33,8 @@ from __future__ import annotations
 
 import torch
 
+from sbdart_tpu_torch import tracing
+from sbdart_tpu_torch.kernels import use_kernel
 from sbdart_tpu_torch.kernels.blocktri_rt import solve_step
 from sbdart_tpu_torch.kernels.eig_chain import (
     SWEEPS_F32,
@@ -40,11 +42,9 @@ from sbdart_tpu_torch.kernels.eig_chain import (
     _kernel_consts,
     alpha_beta,
     chain,
+    sweeps_for,
 )
-from sbdart_tpu_torch.kernels.eig_n2 import (
-    eig_beam_chain_n2,
-    eig_beam_chain_n2_plain,
-)
+from sbdart_tpu_torch.kernels.eig_n2 import eig_beam_chain_n2
 from sbdart_tpu_torch.ops.lane import lmatmul as _mm
 from sbdart_tpu_torch.ops.lane import lmatvec as _mv
 
@@ -67,10 +67,12 @@ def eig_beam_chain_plain(cppl, cpml, r1, r2, mu0, mu, w, sweeps=SWEEPS_F32):
 
 
 def eig_beam_chain(cppl, cpml, r1, r2, mu0, mu, w):
-    """B4: the CUDA kernel on CUDA tensors (float32 only, 3 sweeps), the
-    plain torch version on CPU tensors.  Shapes as in the module doc."""
-    if cppl.device.type == "cpu":
-        return eig_beam_chain_plain(cppl, cpml, r1, r2, mu0, mu, w)
+    """B4: the CUDA kernel (float32 only, 3 sweeps) where use_kernel,
+    else the plain torch version with `sweeps_for` its dtype.  Shapes as
+    in the module doc."""
+    if not use_kernel(cppl):
+        return eig_beam_chain_plain(cppl, cpml, r1, r2, mu0, mu, w,
+                                    sweeps=sweeps_for(cppl.dtype))
     from sbdart_tpu_torch.kernels import _build
 
     nlyr, n, _, b = cppl.shape
@@ -106,29 +108,21 @@ def eig_beam_chain(cppl, cpml, r1, r2, mu0, mu, w):
             *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
             nlyr, n, b, consts.ctypes.data, stream,
         )
-    eig_beam_chain.launches += 1
+    tracing.count("kernels.eig_beam_chain.launches")
     _build.check(code, "eig_beam_chain")
     return outs
 
 
-def eig_beam_chain_lane(cppl, cpml, r1, r2, mu0, tab, *, kernels=True,
-                        sweeps=SWEEPS_F32):
+def eig_beam_chain_lane(cppl, cpml, r1, r2, mu0, tab):
     """The eigen chain + beam solve on a flat lane axis, as
     pallas/eig.py:eig_beam_chain_lane_fused: cppl/cpml [N, N, B], r1/r2
     [N, B], mu0 [1, B] (one beam cosine per lane) -> kk [N, B], gp/gm
-    [N, N, B], zp/zm [N, B].  It runs the layered kernels on a one-layer
-    view, as the reference does: B8 (kernels/eig_n2.py) at N = 2, B4 at
-    N >= 4; the kernel wrappers when `kernels`, else the plain versions
-    (B4's with `sweeps` Jacobi sweeps).  `tab` is the AngularTables."""
+    [N, N, B], zp/zm [N, B].  It runs the layered kernels' wrappers on a
+    one-layer view, as the reference does: B8 (kernels/eig_n2.py) at
+    N = 2, B4 at N >= 4.  `tab` is the AngularTables."""
     ops = (cppl[None], cpml[None], r1[None], r2[None], mu0.reshape(1, -1))
     if cppl.shape[0] == 2:
-        front = eig_beam_chain_n2 if kernels else eig_beam_chain_n2_plain
-        out = front(*ops, tab)
-    elif kernels:
-        out = eig_beam_chain(*ops, tab.mu, tab.w)
+        out = eig_beam_chain_n2(*ops, tab)
     else:
-        out = eig_beam_chain_plain(*ops, tab.mu, tab.w, sweeps=sweeps)
+        out = eig_beam_chain(*ops, tab.mu, tab.w)
     return tuple(x[0] for x in out)
-
-
-eig_beam_chain.launches = 0

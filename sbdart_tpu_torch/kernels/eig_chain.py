@@ -11,11 +11,12 @@ count, round-robin pair schedule) or the closed-form half-angle 2x2 eigh
 at N = 2 (kernels/eig_n2.py:eigh2_half_angle, pallas/eig.py:258-261), no
 eigenvalue sort either way -- and the triangular solve to G+-.
 
-`eig_chain` launches a CUDA kernel on CUDA tensors (`chain_entry`: at
-N = 2 the one-thread chain of csrc/eig_chain.cu, at N = 4, 6, 8 B4's lane
-group kernel without the beam solve, csrc/eig_beam_group.cu) and runs
-`eig_chain_plain` on CPU tensors.  Layout is layer-leading and
-column-minor: cppl/cpml [L, N, N, B] -> kk [L, N, B], gp/gm [L, N, N, B].
+`eig_chain` launches a CUDA kernel where kernels/__init__.py:use_kernel
+says so (`chain_entry`: at N = 2 the one-thread chain of
+csrc/eig_chain.cu, at N = 4, 6, 8 B4's lane group kernel without the
+beam solve, csrc/eig_beam_group.cu) and runs `eig_chain_plain`
+otherwise.  Layout is layer-leading and column-minor: cppl/cpml
+[L, N, N, B] -> kk [L, N, B], gp/gm [L, N, N, B].
 `eig_chain_lane` is the counterpart of eig_chain_lane_fused: flat
 [N, N, B] operands as a one-layer view.
 
@@ -32,6 +33,8 @@ import functools
 import numpy as np
 import torch
 
+from sbdart_tpu_torch import tracing
+from sbdart_tpu_torch.kernels import use_kernel
 from sbdart_tpu_torch.kernels.eig_n2 import eigh2_half_angle
 from sbdart_tpu_torch.ops.graph import const, index
 from sbdart_tpu_torch.ops.lane import (
@@ -46,6 +49,12 @@ from sbdart_tpu_torch.ops.lane import lmatmul as _mm
 # 3).  The float64 route runs the reference lane route's 6 (ops/lane.py:260).
 SWEEPS_F32 = 3
 SWEEPS_F64 = 6
+
+
+def sweeps_for(dtype: torch.dtype) -> int:
+    """The plain chain's sweeps where a wrapper runs it: the kernel's in
+    float32, the float64 route's otherwise."""
+    return SWEEPS_F32 if dtype == torch.float32 else SWEEPS_F64
 
 
 def _jacobi_tables(n: int) -> list[tuple[np.ndarray, np.ndarray]]:
@@ -210,11 +219,12 @@ def chain_entry(n: int) -> str:
 
 
 def eig_chain(cppl, cpml, mu, w):
-    """B9: a CUDA kernel on CUDA tensors (float32 only, 3 sweeps;
-    `chain_entry` names it by N), the plain torch version on CPU tensors.
-    Shapes as in the module doc."""
-    if cppl.device.type == "cpu":
-        return eig_chain_plain(cppl, cpml, mu, w)
+    """B9: a CUDA kernel (float32 only, 3 sweeps; `chain_entry` names it
+    by N) where use_kernel, else the plain torch version with `sweeps_for`
+    its dtype.  Shapes as in the module doc."""
+    if not use_kernel(cppl):
+        return eig_chain_plain(cppl, cpml, mu, w,
+                               sweeps=sweeps_for(cppl.dtype))
     from sbdart_tpu_torch.kernels import _build
 
     nlyr, n, _, b = cppl.shape
@@ -241,21 +251,13 @@ def eig_chain(cppl, cpml, mu, w):
             *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
             nlyr, n, b, consts.ctypes.data, stream,
         )
-    eig_chain.launches += 1
+    tracing.count("kernels.eig_chain.launches")
     _build.check(code, "eig_chain")
     return outs
 
 
-def eig_chain_lane(cppl, cpml, mu, w, *, kernels=True, sweeps=SWEEPS_F32):
+def eig_chain_lane(cppl, cpml, mu, w):
     """The chain on a flat lane axis, as pallas/eig.py:eig_chain_lane_fused:
-    cppl/cpml [N, N, B] -> kk [N, B], gp/gm [N, N, B], through B9 on a
-    one-layer view (the kernel wrapper when `kernels`, else the plain
-    version with `sweeps` sweeps)."""
-    if kernels:
-        out = eig_chain(cppl[None], cpml[None], mu, w)
-    else:
-        out = eig_chain_plain(cppl[None], cpml[None], mu, w, sweeps=sweeps)
-    return tuple(x[0] for x in out)
-
-
-eig_chain.launches = 0
+    cppl/cpml [N, N, B] -> kk [N, B], gp/gm [N, N, B], through B9's
+    wrapper on a one-layer view."""
+    return tuple(x[0] for x in eig_chain(cppl[None], cpml[None], mu, w))

@@ -28,6 +28,8 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from sbdart_tpu_torch import tracing
+from sbdart_tpu_torch.kernels import use_kernel
 from sbdart_tpu_torch.solver.deltam import ssalb_dither
 
 
@@ -298,7 +300,7 @@ def eig_beam_chain_n2(cppl, cpml, r1, r2, mu0, tab):
     pallas/eig.py:_n2_planar_kernel.  The CUDA kernel csrc/eig_n2_planar.cu
     on CUDA tensors (float32 only), the plain torch version on CPU
     tensors.  Returns kk [L, 2, B], gp/gm [L, 2, 2, B], zp/zm [L, 2, B]."""
-    if cppl.device.type == "cpu":
+    if not use_kernel(cppl):
         return eig_beam_chain_n2_plain(cppl, cpml, r1, r2, mu0, tab)
     from sbdart_tpu_torch.kernels import _build
 
@@ -329,7 +331,7 @@ def eig_beam_chain_n2(cppl, cpml, r1, r2, mu0, tab):
             *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
             nlyr, b, consts.ctypes.data, stream,
         )
-    eig_beam_chain_n2.launches += 1
+    tracing.count("kernels.eig_beam_chain_n2.launches")
     _build.check(code, "eig_beam_chain_n2")
     return outs
 
@@ -338,7 +340,7 @@ def eig_beam_deltam_scatter_n2(dtau, ssalb, pmom5, scale, mu0, tab,
                                use_deltam=True):
     """B1 front end: the CUDA kernel on CUDA tensors (float32 only), the
     plain torch version on CPU tensors.  Shapes as in the module doc."""
-    if dtau.device.type == "cpu":
+    if not use_kernel(dtau):
         return eig_beam_deltam_scatter_n2_plain(
             dtau, ssalb, pmom5, scale, mu0, tab, use_deltam
         )
@@ -374,10 +376,6 @@ def eig_beam_deltam_scatter_n2(dtau, ssalb, pmom5, scale, mu0, tab,
             *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
             nlyr, b, int(bool(use_deltam)), consts.ctypes.data, stream,
         )
-    eig_beam_deltam_scatter_n2.launches += 1
+    tracing.count("kernels.eig_beam_deltam_scatter_n2.launches")
     _build.check(code, "eig_beam_deltam_scatter_n2")
     return outs
-
-
-eig_beam_deltam_scatter_n2.launches = 0
-eig_beam_chain_n2.launches = 0

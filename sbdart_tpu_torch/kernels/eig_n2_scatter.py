@@ -20,6 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sbdart_tpu_torch import tracing
+from sbdart_tpu_torch.kernels import use_kernel
 from sbdart_tpu_torch.kernels.eig_n2 import (
     _consts,
     _kernel_consts,
@@ -38,7 +40,7 @@ def eig_beam_scatter_n2_plain(ssalb, gl, scale, mu0, tab):
 def eig_beam_scatter_n2(ssalb, gl, scale, mu0, tab):
     """B3 front end: the CUDA kernel on CUDA tensors (float32 only), the
     plain torch version on CPU tensors.  Shapes as in the module doc."""
-    if ssalb.device.type == "cpu":
+    if not use_kernel(ssalb):
         return eig_beam_scatter_n2_plain(ssalb, gl, scale, mu0, tab)
     from sbdart_tpu_torch.kernels import _build
 
@@ -68,9 +70,6 @@ def eig_beam_scatter_n2(ssalb, gl, scale, mu0, tab):
             *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
             nlyr, b, consts.ctypes.data, stream,
         )
-    eig_beam_scatter_n2.launches += 1
+    tracing.count("kernels.eig_beam_scatter_n2.launches")
     _build.check(code, "eig_beam_scatter_n2")
     return outs
-
-
-eig_beam_scatter_n2.launches = 0

@@ -28,7 +28,9 @@ import math
 import numpy as np
 import torch
 
+from sbdart_tpu_torch import tracing
 from sbdart_tpu_torch.constants import C2_RADIATION, STEFAN_BOLTZMANN
+from sbdart_tpu_torch.kernels import use_kernel
 from sbdart_tpu_torch.ops.graph import as_device
 
 _PI4_15 = 15.0 / math.pi**4
@@ -123,7 +125,7 @@ def planck_band(wvnlo, wvnhi, temp, dtype=torch.float64) -> torch.Tensor:
     the device.  CPU tensors: planck_band_plain; CUDA tensors: the kernel
     (float32 only), one launch."""
     wvnlo, wvnhi, temp = _inputs(wvnlo, wvnhi, temp, dtype)
-    if temp.device.type == "cpu":
+    if not use_kernel(temp):
         return planck_band_plain(wvnlo, wvnhi, temp, dtype)
     from sbdart_tpu_torch.kernels import _build
 
@@ -151,9 +153,6 @@ def planck_band(wvnlo, wvnhi, temp, dtype=torch.float64) -> torch.Tensor:
             *(v.data_ptr() for v in views), out.data_ptr(), out.numel(),
             len(dims), dims_host.ctypes.data, consts.ctypes.data, stream,
         )
-    planck_band.launches += 1
+    tracing.count("kernels.planck_band.launches")
     _build.check(code, "planck_band")
     return out
-
-
-planck_band.launches = 0

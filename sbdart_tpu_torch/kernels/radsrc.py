@@ -35,6 +35,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sbdart_tpu_torch import tracing
+from sbdart_tpu_torch.kernels import use_kernel
 from sbdart_tpu_torch.ops.graph import const
 
 RES_EPS = 1e-5      # resonance half-width of the 'away' integral
@@ -180,7 +182,7 @@ def rad_source_lane(t1, t2, yu, c, y0d, gp, gm, kk, zp, zm, a, b,
     lanes = (c, y0d, gp, gm, kk, zp, zm, a, b)
     rows = (dtau, ebtop, mu0, scale)
     _check_operands(t1, t2, yu, lanes, rows, umu)
-    if c.device.type == "cpu":
+    if not use_kernel(c):
         return rad_source_lane_plain(t1, t2, yu, c, y0d, gp, gm, kk, zp, zm,
                                      a, b, dtau, ebtop, mu0, scale, umu)
     from sbdart_tpu_torch.kernels import _build
@@ -211,9 +213,6 @@ def rad_source_lane(t1, t2, yu, c, y0d, gp, gm, kk, zp, zm, a, b,
             strides.ctypes.data, *(x.data_ptr() for x in rows), j.data_ptr(),
             nm, nu, n, lb, angles.ctypes.data, stream,
         )
-    rad_source_lane.launches += 1
+    tracing.count("kernels.rad_source_lane.launches")
     _build.check(code, "rad_source_lane")
     return j
-
-
-rad_source_lane.launches = 0

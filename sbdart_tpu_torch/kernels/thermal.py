@@ -29,7 +29,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sbdart_tpu_torch import tracing
 from sbdart_tpu_torch.constants import slope_tau_floor
+from sbdart_tpu_torch.kernels import use_kernel
 from sbdart_tpu_torch.kernels.planck import _layout
 from sbdart_tpu_torch.ops.graph import const
 from sbdart_tpu_torch.solver.sources import thermal_particular
@@ -144,7 +146,7 @@ def thermal_particular_scan(ssalb, dtau, gl, b_level, tab):
     result as thermal_particular_scan_plain's.  CPU tensors: the plain
     version; CUDA tensors: the kernel (float32 only), one launch, reading
     the inputs through their strides (broadcast batch dims at stride 0)."""
-    if ssalb.device.type == "cpu":
+    if not use_kernel(ssalb):
         return thermal_particular_scan_plain(ssalb, dtau, gl, b_level, tab)
     from sbdart_tpu_torch.kernels import _build
 
@@ -169,9 +171,6 @@ def thermal_particular_scan(ssalb, dtau, gl, b_level, tab):
             *(v.data_ptr() for v in views), out.data_ptr(), n, nlyr, nb,
             ndim, dims_host.ctypes.data, consts.ctypes.data, stream,
         )
-    thermal_particular_scan.launches += 1
+    tracing.count("kernels.thermal_particular_scan.launches")
     _build.check(code, "thermal_particular_scan")
     return y0p, y0m, y1, y1
-
-
-thermal_particular_scan.launches = 0

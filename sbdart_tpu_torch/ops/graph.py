@@ -17,18 +17,18 @@ value, dtype and device, as jit makes them compile-time constants) and
 its scalar arguments from `as_device` (a tensor passes through, a Python
 number is filled on the device).
 
-Which solves are captured is a fixed rule (`eager_reason`; `graph_ok` is
-its negation), never a caught error:
+Which calls capture is the caller's fixed rule, never a caught error
+(`CapturedCall`'s `capture`; the solver's is solver/disort.py:graph_ok):
 
-  | device | dtype   | route                          | captured |
-  | ------ | ------- | ------------------------------ | -------- |
-  | CPU    | any     | any                            | no: CUDA graphs exist on CUDA devices only; the plain path runs eagerly |
-  | CUDA   | float64 | any                            | no: the float64 route is the plain accuracy reference, and its generic path's eigen chain is torch.linalg (cuSOLVER eigh, Cholesky, solve), whose info torch checks on the host |
-  | CUDA   | float32 | flux_lane, radiance_lane       | yes |
-  | CUDA   | float32 | generic, N = nstr/2 <= 16      | yes: B9 or the lane chain, every op a kernel |
-  | CUDA   | float32 | generic, N > 16                | no: the eigen chain is torch.linalg (cuSOLVER), which checks its info on the host |
+  | capture | first call                   | second call                  | later calls |
+  | ------- | ---------------------------- | ---------------------------- | ----------- |
+  | false   | eager, on the current stream | eager                        | eager       |
+  | true    | eager warm-up, side stream   | capture, instantiate, replay | replay      |
 
-A capture that fails on a route the rule admits raises.
+A capture that fails where the caller's rule admits it raises.  The
+process counters (tracing.py) the captured function moves are set back
+after the capture and added again on each replay, so a kernel wrapper's
+`kernels.<wrapper>.launches` counts the launches a replay makes.
 
 A graph reads its constants by address: `const` keeps every tensor it
 made (its keys are static configurations: tables, index arrays, angle
@@ -91,55 +91,6 @@ def as_device(x, dtype, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=dtype, device=device)
 
 
-def eager_reason(route: str, nstr: int, dtype: torch.dtype,
-                 device) -> str | None:
-    """Why a solve on `route` (solver/disort.route) at `nstr` in `dtype`
-    on `device` runs eagerly, or None where it is captured (the module
-    docstring's table)."""
-    if torch.device(device).type != "cuda":
-        return "cpu: CUDA graphs exist on CUDA devices only"
-    if dtype != torch.float32:
-        return ("float64: the plain accuracy route; its generic path's "
-                "eigen chain is torch.linalg (cuSOLVER), whose info torch "
-                "checks on the host")
-    if route == "generic" and nstr // 2 > 16:
-        return ("generic N > 16: the eigen chain is torch.linalg (cuSOLVER "
-                "eigh, Cholesky, solve), whose info torch checks on the host")
-    return None
-
-
-def graph_ok(route: str, nstr: int, dtype: torch.dtype, device) -> bool:
-    """Whether such a solve is captured into a CUDA graph (eager_reason)."""
-    return eager_reason(route, nstr, dtype, device) is None
-
-
-def launch_counters() -> list:
-    """Every kernel wrapper that counts its launches (`<wrapper>.launches`,
-    kernels/__init__.py)."""
-    from sbdart_tpu_torch.kernels import (
-        blocktri,
-        blocktri_n2,
-        blocktri_rt,
-        blocktri_rt_streamed,
-        eig_beam,
-        eig_chain,
-        eig_n2,
-        eig_n2_scatter,
-        planck,
-        radsrc,
-        thermal,
-    )
-
-    found = {}
-    for mod in (blocktri, blocktri_n2, blocktri_rt, blocktri_rt_streamed,
-                eig_beam, eig_chain, eig_n2, eig_n2_scatter, planck, radsrc,
-                thermal):
-        for f in vars(mod).values():
-            if callable(f) and hasattr(f, "launches"):
-                found[id(f)] = f
-    return list(found.values())
-
-
 class CapturedCall:
     """fn(**inputs) replayed as one CUDA graph.
 
@@ -150,9 +101,9 @@ class CapturedCall:
     instantiates the graph and replays it; every later call copies its
     inputs into the static buffers and replays.  A replay's outputs are
     the graph's own tensors: consume or clone them before the next call.
-    Kernel launch counters that the capture moved are set back and added
-    again on each replay.  With `capture` false (the rule of
-    `eager_reason`) every call runs fn eagerly on the current stream.
+    The process counters that the capture moved are set back and added
+    again on each replay.  With `capture` false every call runs fn
+    eagerly on the current stream.
 
     After capture: `device`, `capture_s` and `instantiate_s` (host
     seconds), `pool_bytes` (the device memory the graph's private pool
@@ -205,8 +156,8 @@ class CapturedCall:
             self.graph.replay()
         self.replays += 1
         tracing.count("graph.replays")
-        for f, d in self.deltas:
-            f.launches += d
+        for name, d in self.deltas:
+            tracing.count(name, d)
         return self.static_out
 
     def _side(self):
@@ -227,8 +178,7 @@ class CapturedCall:
         self.device = next(iter(self.static_in.values())).device
         if self.before_capture is not None:
             self.before_capture(self.device)
-        counters = launch_counters()
-        before = [f.launches for f in counters]
+        before = tracing.counters()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         side = self._side()
         # no cyclic garbage collection during the capture: it could
@@ -259,11 +209,11 @@ class CapturedCall:
         self._consts = tuple(_consts.values())
         # the capture launched nothing: set the counters back; each replay
         # adds what the capture counted
-        self.deltas = tuple((f, f.launches - b)
-                            for f, b in zip(counters, before)
-                            if f.launches != b)
-        for f, d in self.deltas:
-            f.launches -= d
+        self.deltas = tuple((k, v - before.get(k, 0))
+                            for k, v in tracing.counters().items()
+                            if v != before.get(k, 0))
+        for name, d in self.deltas:
+            tracing.count(name, -d)
         self.graph, self.static_out = graph, out
 
     def node_count(self) -> int:

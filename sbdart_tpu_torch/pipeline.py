@@ -13,7 +13,7 @@ chunk, `_captured_solver` keeps one ops/graph.py:CapturedCall per static
 configuration, chunk shape and device: the first chunk of a key runs
 eagerly (the warm-up; a one-chunk run captures nothing), every later one
 is copied into the graph's static inputs and replayed, where
-ops/graph.py:graph_ok admits the route (float32 on the card), and runs
+solver/disort.py:graph_ok admits the route (float32 on the card), and runs
 eagerly elsewhere.
 
 Thermal handling, as the reference's: when any sample is thermal (beyond
@@ -37,12 +37,7 @@ from sbdart_tpu_torch.clouds import apply_cloud_humidity, load_usrcld_dat
 from sbdart_tpu_torch.config import Config
 from sbdart_tpu_torch.convert import deck_to_torch, rte_inputs_to_torch
 from sbdart_tpu_torch.dtypes import default_device, default_dtype, parse_dtype
-from sbdart_tpu_torch.ops.graph import (
-    CapturedCall,
-    as_device,
-    graph_cache,
-    graph_ok,
-)
+from sbdart_tpu_torch.ops.graph import CapturedCall, as_device, graph_cache
 from sbdart_tpu_torch.optics import build_optical_deck
 from sbdart_tpu_torch.solar import (
     filter_function,
@@ -50,7 +45,7 @@ from sbdart_tpu_torch.solar import (
     solar_irradiance,
     spectral_grid,
 )
-from sbdart_tpu_torch.solver.disort import route, solve_rte
+from sbdart_tpu_torch.solver.disort import graph_ok, route, solve_rte
 from sbdart_tpu_torch.surface import surface_albedo
 
 THERMAL_WL_UM = 2.0     # nothrm = -1: thermal source on beyond this (rt.doc)

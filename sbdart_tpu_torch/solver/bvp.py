@@ -13,9 +13,9 @@ condition for l = 0) and the upward-intensity continuity at its bottom
 Per-layer tensors go to the lane layout [L, 2N(, 2N), B], B the flattened
 (batch x mode) axis.  `solve_bvp` routes as the reference
 (bvp.py:178-191): float32 runs the fused kernel the reference runs at the
-shape (kernels/blocktri_rt_streamed.py:solve_bvp: B2, B5 or B6; the
-kernel wrappers when `kernels`, else their plain versions), anything else
-assembles the blocks (`assemble_blocks`) and runs `block_thomas_scan`.
+shape (kernels/blocktri_rt_streamed.py:solve_bvp: B2, B5 or B6),
+anything else assembles the blocks (`assemble_blocks`) and runs
+`block_thomas_scan`.
 Method "scan" takes the assembled-block route at every dtype, with B10
 (kernels/blocktri.py) for the float32 elimination.
 """
@@ -92,16 +92,14 @@ def _flat_bm(x, nmode: int):
 
 def solve_bvp(eig: EigResult, part: ParticularAtBounds, dtau, surf_refl,
               fisot, top_emission, surf_emission, beam_refl_src,
-              tab: AngularTables, *, kernels: bool = True,
-              method: str = "auto") -> BvpSolution:
+              tab: AngularTables, *, method: str = "auto") -> BvpSolution:
     """Assemble and solve the block-tridiagonal BVP for all azimuth modes.
 
     dtau [..., L] (delta-M scaled); surf_refl [..., m, N, N], the surface
     reflection operator (Lambertian: 2 albedo in mode 0; BRDF: R_m);
     fisot, top_emission [...]; surf_emission [..., N]; beam_refl_src
     [..., m, N], the reflected direct beam.  `method` "auto" or "scan"
-    (module doc); `kernels` picks the float32 kernel wrappers over their
-    plain versions."""
+    (module doc)."""
     dtype, device = dtau.dtype, dtau.device
     n = len(tab.mu)
     nmode = eig.kk.shape[-3]
@@ -144,15 +142,11 @@ def solve_bvp(eig: EigResult, part: ParticularAtBounds, dtau, surf_refl,
             solve_bvp as solve_fused,
         )
 
-        xs = solve_fused(gp, gm, ee, refl_op, rhs, kernels=kernels)
+        xs = solve_fused(gp, gm, ee, refl_op, rhs)
     elif dtype == torch.float32:
-        from sbdart_tpu_torch.kernels.blocktri import (
-            block_thomas,
-            block_thomas_plain,
-        )
+        from sbdart_tpu_torch.kernels.blocktri import block_thomas
 
-        solve = block_thomas if kernels else block_thomas_plain
-        xs = solve(*assemble_blocks(gp, gm, ee, refl_op), rhs)
+        xs = block_thomas(*assemble_blocks(gp, gm, ee, refl_op), rhs)
     else:
         xs = block_thomas_scan(*assemble_blocks(gp, gm, ee, refl_op), rhs)
     x = _from_scan_lane(xs, batch_shape)                       # [..., m, L, 2N]

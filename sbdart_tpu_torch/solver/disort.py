@@ -27,6 +27,8 @@ Methods (`eig_method`):
     f32-only kernels, with 6 Jacobi sweeps (the reference lane route's)
     where the float32 kernels run 3.
   * "plain": the plain torch versions, any dtype and device.
+Both plain cases run the solve inside kernels/__init__.py:plain(), which
+every wrapper obeys; nothing below solve_rte picks kernel or plain.
 
 BVP methods (`bvp_method`, the generic path's, as the reference's lane
 paths take none):
@@ -43,18 +45,35 @@ Without `device` and without tensor inputs the solve runs on the CUDA card,
 or on the CPU where the caller asks (`dtypes.default_device`).
 
 Outputs at ALL layer boundaries (the pipeline interpolates user levels).
+
+Which solves the pipeline and the batch capture into a CUDA graph
+(ops/graph.py:CapturedCall) is a fixed rule of the route (`eager_reason`;
+`graph_ok` is its negation), never a caught error:
+
+  | device | dtype   | route                      | captured |
+  | ------ | ------- | -------------------------- | -------- |
+  | CPU    | any     | any                        | no: CUDA graphs exist on CUDA devices only; the plain path runs eagerly |
+  | CUDA   | float64 | any                        | no: the float64 route is the plain accuracy reference, and its generic path's eigen chain is torch.linalg (cuSOLVER eigh, Cholesky, solve), whose info torch checks on the host |
+  | CUDA   | float32 | flux_lane, radiance_lane   | yes |
+  | CUDA   | float32 | generic, eig_route not xla | yes: B9 or the lane chain, every op a kernel |
+  | CUDA   | float32 | generic, eig_route xla     | no: the eigen chain is torch.linalg (cuSOLVER), which checks its info on the host |
+
+A capture that fails on a route the rule admits raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from sbdart_tpu_torch import kernels
 from sbdart_tpu_torch.dtypes import default_device, default_dtype, parse_dtype
 from sbdart_tpu_torch.ops.graph import as_device, const
+from sbdart_tpu_torch.solver.eig import eig_route
 
 
 class RteOutputs(NamedTuple):
@@ -80,6 +99,28 @@ def route(*, nstr: int, onlyfl: bool, brdf, umu=None, phi=None) -> str:
     if not onlyfl and umu is not None and phi is not None and lane_n:
         return "radiance_lane"
     return "generic"
+
+
+def eager_reason(route: str, nstr: int, dtype: torch.dtype,
+                 device) -> str | None:
+    """Why a solve on `route` at `nstr` in `dtype` on `device` runs
+    eagerly, or None where it is captured (the module docstring's
+    table)."""
+    if torch.device(device).type != "cuda":
+        return "cpu: CUDA graphs exist on CUDA devices only"
+    if dtype != torch.float32:
+        return ("float64: the plain accuracy route; its generic path's "
+                "eigen chain is torch.linalg (cuSOLVER), whose info torch "
+                "checks on the host")
+    if route == "generic" and eig_route(nstr // 2, dtype) == "xla":
+        return ("generic N > 16: the eigen chain is torch.linalg (cuSOLVER "
+                "eigh, Cholesky, solve), whose info torch checks on the host")
+    return None
+
+
+def graph_ok(route: str, nstr: int, dtype: torch.dtype, device) -> bool:
+    """Whether such a solve is captured into a CUDA graph (eager_reason)."""
+    return eager_reason(route, nstr, dtype, device) is None
 
 
 def solve_rte(
@@ -142,7 +183,6 @@ def solve_rte(
     ssalb_in = ssalb_in.expand(batch + (nlyr,))
     pmom = pmom.expand(batch + pmom.shape[-2:])
 
-    from sbdart_tpu_torch.kernels.eig_chain import SWEEPS_F32, SWEEPS_F64
     from sbdart_tpu_torch.solver.fluxlane import (
         PlanckInputs,
         solve_rte_flux_lane,
@@ -153,42 +193,40 @@ def solve_rte(
         pk = PlanckInputs(t(temper).expand(batch + (nlyr + 1,)),
                           *(t(x).expand(batch)
                             for x in (wvnlo, wvnhi, btemp, ttemp, temis)))
-    kernels = eig_method == "auto" and dtype == torch.float32
-    sweeps = SWEEPS_F32 if dtype == torch.float32 else SWEEPS_F64
     path = route(nstr=nstr, onlyfl=onlyfl, brdf=brdf, umu=umu, phi=phi)
-    if path == "radiance_lane":
-        from sbdart_tpu_torch.solver.radlane import solve_rte_radiance_lane
+    with (kernels.plain() if eig_method == "plain" or dtype != torch.float32
+          else contextlib.nullcontext()):
+        if path == "radiance_lane":
+            from sbdart_tpu_torch.solver.radlane import (
+                solve_rte_radiance_lane,
+            )
 
-        return solve_rte_radiance_lane(
+            return solve_rte_radiance_lane(
+                dtauc, ssalb_in, pmom, nstr=nstr, fbeam=fbeam, umu0=umu0,
+                phi0=phi0, fisot=fisot, albedo=albedo, deltam=deltam,
+                umu=umu, phi=phi, corint=corint, planck=pk, brdf=brdf,
+            )
+        if path == "flux_lane":
+            return solve_rte_flux_lane(
+                dtauc, ssalb_in, pmom, fbeam=fbeam, umu0=umu0, fisot=fisot,
+                albedo=albedo, deltam=deltam, nstr=nstr, planck=pk,
+            )
+        return solve_rte_generic(
             dtauc, ssalb_in, pmom, nstr=nstr, fbeam=fbeam, umu0=umu0,
-            phi0=phi0, fisot=fisot, albedo=albedo, deltam=deltam, umu=umu,
-            phi=phi, corint=corint, planck=pk, brdf=brdf, kernels=kernels,
-            sweeps=sweeps,
+            phi0=phi0, fisot=fisot, albedo=albedo, deltam=deltam,
+            onlyfl=onlyfl, umu=umu, phi=phi, corint=corint, planck=pk,
+            brdf=brdf, bvp_method=bvp_method,
         )
-    if path == "flux_lane":
-        return solve_rte_flux_lane(
-            dtauc, ssalb_in, pmom, fbeam=fbeam, umu0=umu0, fisot=fisot,
-            albedo=albedo, deltam=deltam, nstr=nstr, planck=pk,
-            kernels=kernels, sweeps=sweeps,
-        )
-    return solve_rte_generic(
-        dtauc, ssalb_in, pmom, nstr=nstr, fbeam=fbeam, umu0=umu0, phi0=phi0,
-        fisot=fisot, albedo=albedo, deltam=deltam, onlyfl=onlyfl, umu=umu,
-        phi=phi, corint=corint, planck=pk, brdf=brdf, kernels=kernels,
-        bvp_method=bvp_method,
-    )
 
 
 def solve_rte_generic(dtauc, ssalb_in, pmom, *, nstr, fbeam, umu0, phi0,
                       fisot, albedo, deltam, onlyfl, umu, phi, corint,
-                      planck=None, brdf=None, kernels=True,
-                      bvp_method="auto") -> RteOutputs:
+                      planck=None, brdf=None, bvp_method="auto") -> RteOutputs:
     """The generic path (disort.py:181-329).  Inputs batch-major and
     already broadcast (as in solve_rte, one dtype and device); `planck`
-    the PlanckInputs (None: no thermal source); `kernels` picks the kernel
-    wrappers over their plain versions on the float32 route; `bvp_method`
-    as in solve_rte."""
-    from sbdart_tpu_torch.kernels.planck import planck_band, planck_band_plain
+    the PlanckInputs (None: no thermal source); `bvp_method` as in
+    solve_rte."""
+    from sbdart_tpu_torch.kernels.planck import planck_band
     from sbdart_tpu_torch.solver import bvp as bvp_mod
     from sbdart_tpu_torch.solver.deltam import apply_deltam
     from sbdart_tpu_torch.solver.eig import (
@@ -230,9 +268,9 @@ def solve_rte_generic(dtauc, ssalb_in, pmom, *, nstr, fbeam, umu0, phi0,
     if nmode == 1 and n <= 8 and n % 2 == 0 and dtype == torch.float32:
         eig, beam = solve_eigen_beam_fused(
             dm.ssalb, dm.gl, fbeam, mu0, tab,
-            need_cppcpm=planck is not None, kernels=kernels)
+            need_cppcpm=planck is not None)
     else:
-        eig = solve_eigen(dm.ssalb, dm.gl, tab, kernels=kernels)
+        eig = solve_eigen(dm.ssalb, dm.gl, tab)
         beam = beam_particular(eig.cpp, eig.cpm, dm.ssalb, dm.gl, fbeam,
                                mu0, tab)
 
@@ -241,9 +279,8 @@ def solve_rte_generic(dtauc, ssalb_in, pmom, *, nstr, fbeam, umu0, phi0,
     zeros = torch.zeros(batch, dtype=dtype, device=device)
     top_emission = surf_emission = zeros
     if planck is not None:
-        plk = planck_band if kernels else planck_band_plain
-        b_level = plk(planck.wvnlo[..., None], planck.wvnhi[..., None],
-                      planck.temper, dtype)
+        b_level = planck_band(planck.wvnlo[..., None],
+                              planck.wvnhi[..., None], planck.temper, dtype)
         thermal = thermal_particular(
             eig.cpp[..., 0, :, :, :], eig.cpm[..., 0, :, :, :], dm.ssalb,
             dm.dtau, b_level, tab)
@@ -251,9 +288,9 @@ def solve_rte_generic(dtauc, ssalb_in, pmom, *, nstr, fbeam, umu0, phi0,
                                 planck.temper[..., -1])
         ttemp_eff = torch.where(planck.ttemp > 0, planck.ttemp,
                                 planck.temper[..., 0])
-        surf_emission = (1.0 - albedo) * plk(
+        surf_emission = (1.0 - albedo) * planck_band(
             planck.wvnlo, planck.wvnhi, btemp_eff, dtype)
-        top_emission = planck.temis * plk(
+        top_emission = planck.temis * planck_band(
             planck.wvnlo, planck.wvnhi, ttemp_eff, dtype)
 
     part = bvp_mod.particular_at_bounds(beam, thermal, expbea_s, dm.dtau,
@@ -294,7 +331,7 @@ def solve_rte_generic(dtauc, ssalb_in, pmom, *, nstr, fbeam, umu0, phi0,
 
     sol = bvp_mod.solve_bvp(eig, part, dm.dtau, surf_refl, fisot,
                             top_emission, surf_emis_vec, beam_refl_src, tab,
-                            kernels=kernels, method=bvp_method)
+                            method=bvp_method)
     bounds = bvp_mod.intensity_at_boundaries(eig, sol, part, dm.dtau)
     fx = fluxes(bounds, tab, fbeam, mu0, expbea_s, expbea_u, ssalb_in,
                 b_level)

@@ -95,13 +95,12 @@ def eig_route(n: int, dtype: torch.dtype) -> str:
     return "xla"
 
 
-def solve_eigen(ssalb, gl, tab: AngularTables, eig_method: str = "auto",
-                *, kernels: bool = True) -> EigResult:
+def solve_eigen(ssalb, gl, tab: AngularTables,
+                eig_method: str = "auto") -> EigResult:
     """The per-layer homogeneous problem for all azimuth modes: ssalb
     [..., L] (delta-M scaled, dithered < 1), gl [..., L, nstr].  Method
-    "auto" (`eig_route`), "pallas", "lane" or "xla"; on the "pallas"
-    route `kernels` picks B9's wrapper over its plain version."""
-    from sbdart_tpu_torch.kernels.eig_chain import SWEEPS_F32, eig_chain_lane
+    "auto" (`eig_route`), "pallas" (B9's wrapper), "lane" or "xla"."""
+    from sbdart_tpu_torch.kernels.eig_chain import eig_chain_lane
 
     n = len(tab.mu)
     cpp, cpm = scattering_matrices(ssalb, gl, tab)
@@ -110,8 +109,7 @@ def solve_eigen(ssalb, gl, tab: AngularTables, eig_method: str = "auto",
     if eig_method == "pallas":
         cppl, batch_shape = lane.to_lane(cpp)
         cpml, _ = lane.to_lane(cpm)
-        kk, gp, gm = eig_chain_lane(cppl, cpml, tab.mu, tab.w,
-                                    kernels=kernels, sweeps=SWEEPS_F32)
+        kk, gp, gm = eig_chain_lane(cppl, cpml, tab.mu, tab.w)
         return EigResult(lane.from_lane(kk, batch_shape),
                          lane.from_lane(gp, batch_shape),
                          lane.from_lane(gm, batch_shape), cpp, cpm)
@@ -168,7 +166,7 @@ def scattering_matrices_lane_mode0(ssalb, gl, tab: AngularTables):
 
 
 def solve_eigen_beam_fused(ssalb, gl, fbeam, umu0, tab: AngularTables, *,
-                           need_cppcpm: bool = False, kernels: bool = True):
+                           need_cppcpm: bool = False):
     """The flux-mode (nmode = 1) front end of the generic path
     (solver/eig.py:201-276): the mode-0 scattering matrices and the
     reduced beam right-hand side in lane layout, then the eigen chain with
@@ -205,7 +203,7 @@ def solve_eigen_beam_fused(ssalb, gl, fbeam, umu0, tab: AngularTables, *,
     r2 = (x0p - x0m) * inv_mu_col
 
     kk_l, gp_l, gm_l, zp_l, zm_l = eig_beam_chain_lane(
-        cppl, cpml, r1, r2, mu0_l, tab, kernels=kernels)
+        cppl, cpml, r1, r2, mu0_l, tab)
     # unflatten with the (size-1) mode axis of the solver's convention
     batch_shape = tuple(ssalb.shape[:-1]) + (1, nlyr)
     kk, gp, gm, zp, zm = (lane.from_lane(x, batch_shape)

@@ -39,24 +39,11 @@ import torch.nn.functional as F
 
 from sbdart_tpu_torch.convert import tables_to_torch
 from sbdart_tpu_torch.kernels.blocktri_rt_streamed import solve_bvp
-from sbdart_tpu_torch.kernels.eig_beam import (
-    SWEEPS_F32,
-    eig_beam_chain,
-    eig_beam_chain_plain,
-)
-from sbdart_tpu_torch.kernels.eig_n2 import (
-    eig_beam_deltam_scatter_n2,
-    eig_beam_deltam_scatter_n2_plain,
-)
-from sbdart_tpu_torch.kernels.eig_n2_scatter import (
-    eig_beam_scatter_n2,
-    eig_beam_scatter_n2_plain,
-)
-from sbdart_tpu_torch.kernels.planck import planck_band, planck_band_plain
-from sbdart_tpu_torch.kernels.thermal import (
-    thermal_particular_scan,
-    thermal_particular_scan_plain,
-)
+from sbdart_tpu_torch.kernels.eig_beam import eig_beam_chain
+from sbdart_tpu_torch.kernels.eig_n2 import eig_beam_deltam_scatter_n2
+from sbdart_tpu_torch.kernels.eig_n2_scatter import eig_beam_scatter_n2
+from sbdart_tpu_torch.kernels.planck import planck_band
+from sbdart_tpu_torch.kernels.thermal import thermal_particular_scan
 from sbdart_tpu_torch.ops.graph import const
 from sbdart_tpu_torch.solver.deltam import DeltaMResult, apply_deltam
 from sbdart_tpu_torch.solver.disort import RteOutputs
@@ -167,12 +154,10 @@ def general_operands(dm: DeltaMResult, tab, mu0, scale_row):
     return cppl, cpml, r1, r2, mu0.reshape(1, -1)
 
 
-def front_end(dtauc, ssalb_in, pmom, *, fbeam, umu0, deltam, kernels,
-              nstr=4, planck=False, sweeps=SWEEPS_F32) -> FrontEnd:
+def front_end(dtauc, ssalb_in, pmom, *, fbeam, umu0, deltam, nstr=4,
+              planck=False) -> FrontEnd:
     """Optics -> eigen/beam quantities (fluxlane.py:59-188).  Inputs are
-    batch-major and already broadcast; `kernels` picks the kernel wrappers
-    (CUDA kernels on CUDA tensors) over their plain versions; `sweeps` is
-    the plain B4's Jacobi sweep count (the kernel runs 3)."""
+    batch-major and already broadcast."""
     n = nstr // 2
     tab = angular_tables(nstr, 1)
     tab_t = tables_to_torch(tab, device=dtauc.device, dtype=dtauc.dtype)
@@ -182,10 +167,8 @@ def front_end(dtauc, ssalb_in, pmom, *, fbeam, umu0, deltam, kernels,
     if n == 2 and not planck:
         ops, use_dm = front_operands(dtauc, ssalb_in, pmom, fbeam=fbeam,
                                      umu0=umu0, deltam=deltam)
-        front = (eig_beam_deltam_scatter_n2 if kernels
-                 else eig_beam_deltam_scatter_n2_plain)
-        kk, gp, gm, zp, zm, dtau_scan, ee = front(*ops, tab,
-                                                  use_deltam=use_dm)
+        kk, gp, gm, zp, zm, dtau_scan, ee = eig_beam_deltam_scatter_n2(
+            *ops, tab, use_deltam=use_dm)
         zrow = torch.zeros_like(mu0_row)
         tau_s_scan = torch.cat([zrow, torch.cumsum(dtau_scan, dim=0)])
         tau_u_scan = torch.cat([zrow, torch.cumsum(ops[0], dim=0)])
@@ -205,17 +188,11 @@ def front_end(dtauc, ssalb_in, pmom, *, fbeam, umu0, deltam, kernels,
         eb_u = attenuation(dm.dtau_unscaled)
         dtau_scan = to_scan(dm.dtau)
         if n == 2:
-            front = (eig_beam_scatter_n2 if kernels
-                     else eig_beam_scatter_n2_plain)
-            kk, gp, gm, zp, zm = front(
+            kk, gp, gm, zp, zm = eig_beam_scatter_n2(
                 *scatter_operands(dm, scale_row, mu0_row), tab)
         else:
             ops = general_operands(dm, tab, mu0, scale_row)
-            if kernels:
-                kk, gp, gm, zp, zm = eig_beam_chain(*ops, tab.mu, tab.w)
-            else:
-                kk, gp, gm, zp, zm = eig_beam_chain_plain(
-                    *ops, tab.mu, tab.w, sweeps=sweeps)
+            kk, gp, gm, zp, zm = eig_beam_chain(*ops, tab.mu, tab.w)
         ee = torch.exp(-kk * dtau_scan[:, None, :])        # [L, N, Bc]
     return FrontEnd(tab, tab_t.w, tab_t.w * tab_t.mu, kk, gp, gm, zp, zm,
                     ee, eb, eb_u, mu0, has_beam, dm, dtau_scan)
@@ -233,12 +210,10 @@ class BvpSystem(NamedTuple):
 
 
 def bvp_system(fe: FrontEnd, *, fbeam, fisot, albedo,
-               planck: PlanckInputs | None = None,
-               kernels) -> BvpSystem:
+               planck: PlanckInputs | None = None) -> BvpSystem:
     """Particular solution at layer bounds (the thermal one added when
     `planck` is given), surface and top emission, the Lambertian surface
-    operators and the BVP right-hand side (fluxlane.py:190-274).
-    `kernels` picks the Planck kernel wrapper over its plain version."""
+    operators and the BVP right-hand side (fluxlane.py:190-274)."""
     n = fe.kk.shape[1]
     eb = fe.eb
     p_tu = fe.zp * eb[:-1, None, :]
@@ -252,7 +227,7 @@ def bvp_system(fe: FrontEnd, *, fbeam, fisot, albedo,
     b_level = None
     if planck is not None:
         b_level, semis, top_emission, (y0p, y0m, y1p, y1m) = _thermal(
-            fe, planck, albedo, kernels)
+            fe, planck, albedo)
         iso = iso + top_emission.reshape(-1)
         d_scan = fe.dtau_scan[:, None, :]
         p_tu = p_tu + y0p
@@ -283,25 +258,25 @@ def bvp_system(fe: FrontEnd, *, fbeam, fisot, albedo,
     return BvpSystem(refl, rhs, p_tu, p_td, p_bu, p_bd, b_level)
 
 
-def _thermal(fe: FrontEnd, pk: PlanckInputs, albedo, kernels):
+def _thermal(fe: FrontEnd, pk: PlanckInputs, albedo):
     """Planck at the levels, the thermal particular solution in scan
-    layout, and the surface/top emission (fluxlane.py:200-243).  Planck is
-    evaluated in the working dtype: float32 on the kernel path, as the
-    reference's lane path does, float64 on the f64 route, as its generic
-    path does.  `kernels` picks the Planck and particular-solution kernel
-    wrappers (kernels/planck.py, kernels/thermal.py) over their plain
-    versions."""
+    layout, and the surface/top emission (fluxlane.py:200-243), through
+    the P1 and P2 wrappers (kernels/planck.py, kernels/thermal.py).
+    Planck is evaluated in the working dtype: float32 on the kernel path,
+    as the reference's lane path does, float64 on the f64 route, as its
+    generic path does."""
     dm, tab = fe.dm, fe.tab
     dtype = dm.ssalb.dtype
-    plk = planck_band if kernels else planck_band_plain
-    b_level = plk(pk.wvnlo[..., None], pk.wvnhi[..., None], pk.temper, dtype)
-    thp = (thermal_particular_scan if kernels
-           else thermal_particular_scan_plain)
-    y = thp(dm.ssalb, dm.dtau, dm.gl, b_level, tab)  # Y0+-, Y1+- [L, N, B]
+    b_level = planck_band(pk.wvnlo[..., None], pk.wvnhi[..., None],
+                          pk.temper, dtype)
+    # Y0+-, Y1+- [L, N, B]
+    y = thermal_particular_scan(dm.ssalb, dm.dtau, dm.gl, b_level, tab)
     btemp_eff = torch.where(pk.btemp > 0, pk.btemp, pk.temper[..., -1])
     ttemp_eff = torch.where(pk.ttemp > 0, pk.ttemp, pk.temper[..., 0])
-    surf_emission = (1.0 - albedo) * plk(pk.wvnlo, pk.wvnhi, btemp_eff, dtype)
-    top_emission = pk.temis * plk(pk.wvnlo, pk.wvnhi, ttemp_eff, dtype)
+    surf_emission = (1.0 - albedo) * planck_band(pk.wvnlo, pk.wvnhi,
+                                                 btemp_eff, dtype)
+    top_emission = pk.temis * planck_band(pk.wvnlo, pk.wvnhi, ttemp_eff,
+                                          dtype)
     n = fe.kk.shape[1]
     semis = surf_emission.reshape(-1)[None, :].expand(n, -1)
     return to_scan(b_level), semis, top_emission, y
@@ -309,20 +284,18 @@ def _thermal(fe: FrontEnd, pk: PlanckInputs, albedo, kernels):
 
 def solve_rte_flux_lane(dtauc, ssalb_in, pmom, *, fbeam, umu0, fisot,
                         albedo, deltam, nstr=4, planck: PlanckInputs | None
-                        = None, kernels=True, sweeps=SWEEPS_F32
-                        ) -> RteOutputs:
+                        = None) -> RteOutputs:
     """Flux-mode solve, lane-resident.  Inputs batch-major as in
     solve_rte (already broadcast, one dtype and device); `planck` turns
     the thermal source on.  Returns RteOutputs with uu=None."""
     nlyr = dtauc.shape[-1]
     batch = tuple(dtauc.shape[:-1])
     fe = front_end(dtauc, ssalb_in, pmom, fbeam=fbeam, umu0=umu0,
-                   deltam=deltam, kernels=kernels, nstr=nstr,
-                   planck=planck is not None, sweeps=sweeps)
+                   deltam=deltam, nstr=nstr, planck=planck is not None)
     sysm = bvp_system(fe, fbeam=fbeam, fisot=fisot, albedo=albedo,
-                      planck=planck, kernels=kernels)
+                      planck=planck)
     n = nstr // 2
-    xs = solve_bvp(fe.gp, fe.gm, fe.ee, sysm.refl, sysm.rhs, kernels=kernels)
+    xs = solve_bvp(fe.gp, fe.gm, fe.ee, sysm.refl, sysm.rhs)
     a = xs[:, :n]                                        # [L, N, Bc]
     b = xs[:, n:]
 

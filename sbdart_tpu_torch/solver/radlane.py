@@ -40,12 +40,9 @@ import torch
 
 from sbdart_tpu_torch.constants import slope_tau_floor
 from sbdart_tpu_torch.kernels.blocktri_rt_streamed import solve_bvp
-from sbdart_tpu_torch.kernels.eig_beam import SWEEPS_F32, eig_beam_chain_lane
-from sbdart_tpu_torch.kernels.planck import planck_band, planck_band_plain
-from sbdart_tpu_torch.kernels.radsrc import (
-    rad_source_lane,
-    rad_source_lane_plain,
-)
+from sbdart_tpu_torch.kernels.eig_beam import eig_beam_chain_lane
+from sbdart_tpu_torch.kernels.planck import planck_band
+from sbdart_tpu_torch.kernels.radsrc import rad_source_lane
 from sbdart_tpu_torch.ops.graph import const, index
 from sbdart_tpu_torch.solver.deltam import apply_deltam
 from sbdart_tpu_torch.solver.disort import RteOutputs
@@ -71,14 +68,13 @@ def user_tables(tab, umu):
 
 def solve_rte_radiance_lane(dtauc, ssalb_in, pmom, *, nstr, fbeam, umu0,
                             phi0, fisot, albedo, deltam, umu, phi, corint,
-                            planck: PlanckInputs | None = None, brdf=None,
-                            kernels=True, sweeps=SWEEPS_F32) -> RteOutputs:
+                            planck: PlanckInputs | None = None,
+                            brdf=None) -> RteOutputs:
     """Radiance-mode solve, lane-resident.  Inputs batch-major and already
     broadcast (as in solve_rte, one dtype and device); umu/phi host
     numbers; `planck` turns the thermal source on; `brdf` a
-    solver/brdf.py model (None: Lambertian `albedo`); `kernels` picks the
-    kernel wrappers over their plain versions.  Returns RteOutputs with
-    uu [..., L+1, U, P]."""
+    solver/brdf.py model (None: Lambertian `albedo`).  Returns RteOutputs
+    with uu [..., L+1, U, P]."""
     dtype, device = dtauc.dtype, dtauc.device
     n = nstr // 2
     nm = nstr                       # all azimuth Fourier modes, branchless
@@ -152,7 +148,7 @@ def solve_rte_radiance_lane(dtauc, ssalb_in, pmom, *, nstr, fbeam, umu0,
     mu0_f = mu0.reshape(bc).expand(nm, nlyr, bc).reshape(1, -1)
 
     kk_l, gp_l, gm_l, zp_l, zm_l = eig_beam_chain_lane(
-        cppl, cpml, r1, r2, mu0_f, tab, kernels=kernels, sweeps=sweeps)
+        cppl, cpml, r1, r2, mu0_f, tab)
 
     # ---- kernel outputs to the scan layout [L, *, M*Bc] -----------------
     def unflat(x):
@@ -180,9 +176,8 @@ def solve_rte_radiance_lane(dtauc, ssalb_in, pmom, *, nstr, fbeam, umu0,
     thermal = None
     if planck is not None:
         # Planck in the working dtype, as solver/fluxlane.py:_thermal
-        plk = planck_band if kernels else planck_band_plain
-        b_level = plk(planck.wvnlo[..., None], planck.wvnhi[..., None],
-                      planck.temper, dtype)
+        b_level = planck_band(planck.wvnlo[..., None],
+                              planck.wvnhi[..., None], planck.temper, dtype)
         # the thermal particular is azimuth-mode-0 only
         ylm0_j = t(ylm_np[0])                               # [nstr, N]
         par0_j = t(par_np[0])
@@ -207,9 +202,9 @@ def solve_rte_radiance_lane(dtauc, ssalb_in, pmom, *, nstr, fbeam, umu0,
                                 planck.temper[..., -1])
         ttemp_eff = torch.where(planck.ttemp > 0, planck.ttemp,
                                 planck.temper[..., 0])
-        surf_emission = (1.0 - albedo) * plk(
+        surf_emission = (1.0 - albedo) * planck_band(
             planck.wvnlo, planck.wvnhi, btemp_eff, dtype)
-        top_emission = planck.temis * plk(
+        top_emission = planck.temis * planck_band(
             planck.wvnlo, planck.wvnhi, ttemp_eff, dtype)
 
     # ---- surface operators (all modes: Lambertian in mode 0, BRDF in
@@ -270,7 +265,7 @@ def solve_rte_radiance_lane(dtauc, ssalb_in, pmom, *, nstr, fbeam, umu0,
     r_bot = torch.cat([r_botl, r_botL[None]], dim=0)
     rhs = torch.cat([r_top, r_bot], dim=1)                  # [L, 2N, MB]
 
-    xs = solve_bvp(gp, gm, ee, refl_op, rhs, kernels=kernels)
+    xs = solve_bvp(gp, gm, ee, refl_op, rhs)
     a = xs[:, :n]                                           # [L, N, MB]
     b = xs[:, n:]
 
@@ -323,8 +318,7 @@ def solve_rte_radiance_lane(dtauc, ssalb_in, pmom, *, nstr, fbeam, umu0,
         """A per-column row [Bc] repeated over the layers -> [1, LB]."""
         return row[None, :].expand(nlyr, bc).reshape(1, lb)
 
-    source = rad_source_lane if kernels else rad_source_lane_plain
-    j_all = source(
+    j_all = rad_source_lane(
         t(t1_np), t(t2_np), t(yu_np), c_flat,
         y0d_l[:, :, None, :].expand(nm, nstr, nlyr, bc).reshape(nm, nstr, lb),
         mlead(gp_l), mlead(gm_l), mlead(kk_l), mlead(zp_l), mlead(zm_l),

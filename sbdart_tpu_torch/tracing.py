@@ -19,9 +19,11 @@ list (`parent`) and the id of the enclosing `batch.job` span (`job`, the
 same for every span of one `run_batch` call).  The last MAXLEN spans are
 kept; `dropped()` counts the ones pushed out.
 
-`count(name, n)` adds to a process counter, always on.  `counters()`
-reads them with every kernel wrapper's launch count
-(`kernels.<wrapper>.launches`, live from ops/graph.py:launch_counters).
+`count(name, n)` adds to a process counter, always on; `counters()`
+reads them.  Every kernel wrapper counts its launches in
+`kernels.<wrapper>.launches` (a name appears at its first launch), and a
+captured graph's replay adds what its capture counted
+(ops/graph.py:CapturedCall).
 """
 
 from __future__ import annotations
@@ -149,19 +151,13 @@ def count(name: str, n: int = 1) -> None:
 
 
 def counters() -> dict:
-    """The process counters and each kernel wrapper's live launch count."""
-    from sbdart_tpu_torch.ops.graph import launch_counters
-
+    """The process counters."""
     with _lock:
-        out = dict(_counts)
-    for f in launch_counters():
-        out[f"kernels.{f.__name__}.launches"] = f.launches
-    return out
+        return dict(_counts)
 
 
 def clear() -> None:
-    """Forget every span and process counter (the launch counts are the
-    wrappers' own)."""
+    """Forget every span and process counter."""
     global _opened
     with _lock:
         _records.clear()

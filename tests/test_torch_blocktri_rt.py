@@ -25,8 +25,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+from launch_counts import launches
 from test_torch_blocktri_n2 import dense_solve, rt_problem
 
+from sbdart_tpu_torch import kernels
 from sbdart_tpu_torch.kernels.blocktri_n2 import block_thomas_rt_n2_plain
 
 import sbdart_tpu.pallas.blocktri as ref_blocktri
@@ -139,9 +142,9 @@ def test_solve_step_pivots_like_reference():
 def test_blocktri_rt_wrapper_takes_plain_version_on_cpu():
     prob = [torch.from_numpy(x.astype(np.float32))
             for x in rt_problem(3, 4, 9, coupling=0.4)]
-    before = block_thomas_rt.launches
+    before = launches(block_thomas_rt)
     assert torch.equal(block_thomas_rt(*prob), block_thomas_rt_plain(*prob))
-    assert block_thomas_rt.launches == before
+    assert launches(block_thomas_rt) == before
 
 
 @pytest.mark.parametrize("nlyr,n,b,coupling,chunk", [
@@ -265,22 +268,24 @@ def test_solve_bvp_runs_the_routed_kernel(n, nlyr):
     plain = {"planar": block_thomas_rt_n2_plain, "full": block_thomas_rt_plain,
              "streamed": block_thomas_rt_streamed_plain}
     want = plain[reference_route(nlyr, n)](*prob)
-    assert torch.equal(solve_bvp(*prob, kernels=False), want)
+    with kernels.plain():
+        assert torch.equal(solve_bvp(*prob), want)
     assert torch.equal(solve_bvp(*prob), want)
 
 
 def test_blocktri_rt_streamed_wrappers_take_plain_versions_on_cpu():
     prob = [torch.from_numpy(x.astype(np.float32))
             for x in rt_problem(3, 6, 9, coupling=0.4)]
-    before = (block_thomas_rt_fwd.launches, block_thomas_rt_bwd_group.launches)
+    before = (launches(block_thomas_rt_fwd),
+              launches(block_thomas_rt_bwd_group))
     cs, ys = block_thomas_rt_fwd(*prob)
     cs_p, ys_p = block_thomas_rt_fwd_plain(*prob)
     assert cs.shape == (3, 12, 6, 9) and ys.shape == (3, 12, 9)
     assert torch.equal(cs, cs_p) and torch.equal(ys, ys_p)
     assert torch.equal(block_thomas_rt_bwd(*prob[:3], cs, ys),
                        block_thomas_rt_streamed_plain(*prob))
-    assert (block_thomas_rt_fwd.launches,
-            block_thomas_rt_bwd_group.launches) == before
+    assert (launches(block_thomas_rt_fwd),
+            launches(block_thomas_rt_bwd_group)) == before
 
 
 @pytest.mark.parametrize("n", range(1, 25))

@@ -21,6 +21,8 @@ import numpy as np
 import pytest
 import torch
 
+from launch_counts import launches
+
 from sbdart_tpu.pallas.eig import eig_chain_lane_fused
 from sbdart_tpu_torch.kernels.eig_chain import (
     SWEEPS_F64,
@@ -79,7 +81,7 @@ def test_eig_chain_plain_matches_pallas_interpret(nstr, nlyr, b, all_modes):
     ref = eig_chain_lane_fused(jnp.asarray(cppl.numpy()),
                                jnp.asarray(cpml.numpy()), mu, w,
                                interpret=True)
-    got = eig_chain_lane(cppl, cpml, mu, w, kernels=False)
+    got = eig_chain_lane(cppl, cpml, mu, w)
     ref = [np.asarray(r) for r in ref]
     got = [g.numpy() for g in got]
     for r, g in zip(ref, got):
@@ -98,7 +100,7 @@ def test_eig_chain_plain_matches_pallas_interpret(nstr, nlyr, b, all_modes):
 def test_eig_chain_plain_satisfies_eigen_relations():
     """tests/test_pallas_kernels.py:189-221's case and bar."""
     cppl, cpml, mu, w = chain_operands(8, 5, 16)
-    got = eig_chain_lane(cppl, cpml, mu, w, kernels=False)
+    got = eig_chain_lane(cppl, cpml, mu, w)
     for res in eigen_residuals(cppl, cpml, mu, w, *got):
         assert res < 5e-4, res
 
@@ -126,11 +128,11 @@ def test_eig_chain_f64_with_six_sweeps_is_exact():
 
 def test_eig_chain_wrapper_takes_plain_version_on_cpu():
     cppl, cpml, mu, w = chain_operands(8, 2, 9)
-    before = eig_chain.launches
+    before = launches(eig_chain)
     for g, p in zip(eig_chain(cppl[None], cpml[None], mu, w),
                     eig_chain_plain(cppl[None], cpml[None], mu, w)):
         assert torch.equal(g, p)
-    assert eig_chain.launches == before
+    assert launches(eig_chain) == before
 
 
 def test_eig_chain_entry_by_n():

@@ -29,6 +29,8 @@ import numpy as np
 import pytest
 import torch
 
+from launch_counts import launches
+
 from sbdart_tpu.pallas.eig import eig_beam_deltam_scatter_n2_layered
 from sbdart_tpu.solver.eig import angular_tables as ref_angular_tables
 from sbdart_tpu_torch.kernels import eig_n2
@@ -112,7 +114,7 @@ def test_eig_n2_wrapper_takes_plain_version_on_cpu():
     """On CPU tensors the wrapper runs the plain version and launches
     nothing, in float32 and float64 alike."""
     tab = angular_tables(4, 1)
-    before = eig_beam_deltam_scatter_n2.launches
+    before = launches(eig_beam_deltam_scatter_n2)
     for dtype in (torch.float32, torch.float64):
         args = [torch.from_numpy(a).to(dtype)
                 for a in front_problem(3, 40, seed=1)]
@@ -120,4 +122,4 @@ def test_eig_n2_wrapper_takes_plain_version_on_cpu():
         want = eig_beam_deltam_scatter_n2_plain(*args, tab)
         for g, w in zip(got, want):
             assert g.dtype == dtype and torch.equal(g, w)
-    assert eig_beam_deltam_scatter_n2.launches == before
+    assert launches(eig_beam_deltam_scatter_n2) == before

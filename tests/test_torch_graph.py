@@ -1,7 +1,7 @@
 """Captured solves on the CPU (sbdart_tpu_torch/ops/graph.py): what capture
 needs, shown without a card.
 
-  * A capture rehearsal for every route ops/graph.py:graph_ok admits on
+  * A capture rehearsal for every route solver/disort.py:graph_ok admits on
     the card: after one warm-up call, the float32 solve body runs again
     with every host/device transfer torch offers patched to raise
     (torch.as_tensor, torch.tensor, Tensor.item, .tolist, .cpu, .numpy,
@@ -45,8 +45,12 @@ from sbdart_tpu_torch.batch import ColumnBatch, build_batch_fn, run_batch
 from sbdart_tpu_torch.config import Config
 from sbdart_tpu_torch.convert import brdf_to_torch
 from sbdart_tpu_torch.ops import graph
-from sbdart_tpu_torch.ops.graph import eager_reason, graph_ok
-from sbdart_tpu_torch.solver.disort import route, solve_rte
+from sbdart_tpu_torch.solver.disort import (
+    eager_reason,
+    graph_ok,
+    route,
+    solve_rte,
+)
 from test_torch_generic import generic_problem
 
 CUDA = torch.device("cuda")

@@ -6,7 +6,7 @@ there is no JAX, so the repo conftest is left out):
 
     python -m pytest tests/test_torch_graph_cuda.py -m cuda --noconftest -o addopts=''
 
-  * Each route ops/graph.py:graph_ok admits (chip_smoke.py's solve cells
+  * Each route solver/disort.py:graph_ok admits (chip_smoke.py's solve cells
     at 512 band-columns or fewer): the first call is the eager warm-up,
     the second captures and replays on the same inputs, the third replays
     on fresh inputs against a fresh eager solve; the replays move the
@@ -26,11 +26,16 @@ there is no JAX, so the repo conftest is left out):
     captured graph at the next capture, and every run still equals eager.
   * The cyclic garbage collector is paused during a capture (a graph it
     freed there would invalidate the capture) and runs again after it.
+  * A kernel launch counts 1 under `kernels.<wrapper>.launches` and
+    nothing else; a capture leaves the process counters as they were,
+    and each replay adds what the capture counted.
 """
 
 import numpy as np
 import pytest
 import torch
+
+from launch_counts import launches
 
 
 @pytest.fixture
@@ -54,9 +59,10 @@ def _equal(got, want):
 
 
 def _launches():
-    from sbdart_tpu_torch.ops.graph import launch_counters
+    from sbdart_tpu_torch import tracing
 
-    return {f.__name__: f.launches for f in launch_counters()}
+    return {k: v for k, v in tracing.counters().items()
+            if k.startswith("kernels.")}
 
 
 @pytest.mark.cuda
@@ -67,7 +73,7 @@ def _launches():
     "G7", "G8", "G8-scan", "G9"])
 def test_replay_equals_eager(cuda_device, name):
     import chip_smoke
-    from sbdart_tpu_torch.ops.graph import graph_ok
+    from sbdart_tpu_torch.solver.disort import graph_ok
 
     path, nstr, args, kw = _cell(name, cuda_device, seed=0)
     assert graph_ok(path, nstr, torch.float32, cuda_device)
@@ -81,8 +87,8 @@ def test_replay_equals_eager(cuda_device, name):
     torch.cuda.synchronize()
     assert call.graph is not None and call.replays == 1
     _equal(got, want)
-    moved = {k for k, v in _launches().items() if v != before[k]}
-    assert moved and moved == {f.__name__ for f, _ in call.deltas}
+    moved = {k for k, v in _launches().items() if v != before.get(k, 0)}
+    assert moved and moved == {k for k, _ in call.deltas}
     _, _, f_args, f_kw = _cell(name, cuda_device, seed=1)
     fresh = chip_smoke.eager_solve(f_args, f_kw)
     got = call(chip_smoke.captured_solve(f_args, f_kw, inputs_only=True))
@@ -183,12 +189,12 @@ def test_run_batch_replays_equal_eager_with_resume(cuda_device, tmp_path):
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
     # resume: every chunk restored launches nothing; one deleted chunk is
     # recomputed (its first call the warm-up of a new build), equal again
-    block_thomas_rt_n2.launches = 0
+    n0 = launches(block_thomas_rt_n2)
     res = run_batch(cfg, batch, band_chunk=4, col_chunk=8, checkpoint_dir=ck)
-    assert block_thomas_rt_n2.launches == 0
+    assert launches(block_thomas_rt_n2) == n0
     (tmp_path / "ck" / "cols_16_24.npz").unlink()
     res2 = run_batch(cfg, batch, band_chunk=4, col_chunk=8, checkpoint_dir=ck)
-    assert block_thomas_rt_n2.launches > 0
+    assert launches(block_thomas_rt_n2) > n0
     for f in ("fdir", "fdn", "fup"):
         np.testing.assert_array_equal(getattr(res, f), getattr(want, f))
         np.testing.assert_array_equal(getattr(res2, f), getattr(want, f))
@@ -287,7 +293,7 @@ def test_a_span_holds_the_device_interval_of_its_kernel(cuda_device):
                                          ("nstr4-flux-33L", torch.float64)])
 def test_route_outside_the_rule_runs_eagerly(cuda_device, name, dtype):
     import chip_smoke
-    from sbdart_tpu_torch.ops.graph import eager_reason
+    from sbdart_tpu_torch.solver.disort import eager_reason
 
     path, nstr, args, kw = _cell(name, cuda_device, seed=0)
     kw = dict(kw, dtype=dtype)
@@ -371,3 +377,53 @@ def test_capture_pauses_cyclic_garbage_collection(cuda_device):
     torch.cuda.synchronize()
     assert collecting == [True, False] and gc.isenabled()
     _equal(got, want)
+
+
+PLANCK = "kernels.planck_band.launches"
+
+
+def _moved(before):
+    from sbdart_tpu_torch import tracing
+
+    return {k: v - before.get(k, 0) for k, v in tracing.counters().items()
+            if v != before.get(k, 0)}
+
+
+@pytest.mark.cuda
+def test_a_launch_counts_under_its_wrapper(cuda_device):
+    from sbdart_tpu_torch import tracing
+    from sbdart_tpu_torch.kernels.planck import planck_band
+
+    t = torch.full((64,), 250.0, device=cuda_device)
+    before = tracing.counters()
+    planck_band(800.0, 900.0, t, torch.float32)
+    torch.cuda.synchronize()
+    assert _moved(before) == {PLANCK: 1}
+
+
+@pytest.mark.cuda
+def test_a_capture_sets_its_counts_back_and_each_replay_adds_them(
+        cuda_device):
+    from sbdart_tpu_torch import tracing
+    from sbdart_tpu_torch.kernels.planck import planck_band
+    from sbdart_tpu_torch.ops.graph import CapturedCall
+
+    def fn(t):
+        return (planck_band(800.0, 900.0, t, torch.float32)
+                + planck_band(900.0, 1000.0, t, torch.float32))
+
+    call = CapturedCall(fn, capture=True)
+    inputs = {"t": torch.full((64,), 250.0, device=cuda_device)}
+    before = tracing.counters()
+    call(inputs)                                 # the warm-up: eager
+    assert _moved(before) == {PLANCK: 2}
+    before = tracing.counters()
+    call(inputs)                    # the capture, then its first replay
+    torch.cuda.synchronize()
+    assert call.deltas == ((PLANCK, 2),)
+    assert _moved(before) == {PLANCK: 2, "graph.captures": 1,
+                              "graph.replays": 1}
+    before = tracing.counters()
+    call(inputs)                                 # a replay
+    torch.cuda.synchronize()
+    assert _moved(before) == {PLANCK: 2, "graph.replays": 1}

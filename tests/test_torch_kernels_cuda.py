@@ -24,6 +24,8 @@ import numpy as np
 import pytest
 import torch
 
+from launch_counts import launches
+
 
 @pytest.fixture
 def cuda_device():
@@ -63,10 +65,10 @@ def test_eig_n2_kernel_matches_plain(cuda_device, ncol):
         eig_beam_deltam_scatter_n2, eig_beam_deltam_scatter_n2_plain)
 
     ops, use_dm, tab, _ = _problem(ncol, cuda_device)
-    before = eig_beam_deltam_scatter_n2.launches
+    before = launches(eig_beam_deltam_scatter_n2)
     got = eig_beam_deltam_scatter_n2(*ops, tab, use_deltam=use_dm)
     torch.cuda.synchronize()
-    assert eig_beam_deltam_scatter_n2.launches == before + 1
+    assert launches(eig_beam_deltam_scatter_n2) == before + 1
     want = eig_beam_deltam_scatter_n2_plain(*ops, tab, use_deltam=use_dm)
     for name, g, w in zip(NAMES + ("dts", "ee"), got, want):
         _assert_close(g, w, name)
@@ -84,10 +86,10 @@ def test_blocktri_n2_kernel_matches_plain(cuda_device, ncol):
 
     _, _, _, ops = _problem(ncol, cuda_device)
     ops = tuple(ops[:4]) + (_nan_column(ops[4], ncol // 2),)
-    before = block_thomas_rt_n2.launches
+    before = launches(block_thomas_rt_n2)
     got = block_thomas_rt_n2(*ops)
     torch.cuda.synchronize()
-    assert block_thomas_rt_n2.launches == before + 1
+    assert launches(block_thomas_rt_n2) == before + 1
     _assert_equal(got, block_thomas_rt_n2_plain(*ops), "xs")
     assert bool(torch.isnan(got).any())
 
@@ -99,10 +101,10 @@ def test_eig_n2_scatter_kernel_matches_plain(cuda_device, ncol):
         eig_beam_scatter_n2, eig_beam_scatter_n2_plain)
 
     ops, _ = _general(ncol, 4, cuda_device)
-    before = eig_beam_scatter_n2.launches
+    before = launches(eig_beam_scatter_n2)
     got = eig_beam_scatter_n2(*ops)
     torch.cuda.synchronize()
-    assert eig_beam_scatter_n2.launches == before + 1
+    assert launches(eig_beam_scatter_n2) == before + 1
     for name, g, w in zip(NAMES, got, eig_beam_scatter_n2_plain(*ops)):
         _assert_close(g, w, name)
 
@@ -128,10 +130,10 @@ def test_eig_beam_kernel_matches_plain(cuda_device, nstr, ncol):
 
     ops, _ = _general(ncol, nstr, cuda_device)
     ops = (_nan_column(ops[0], ncol // 2),) + tuple(ops[1:])
-    before = eig_beam_chain.launches
+    before = launches(eig_beam_chain)
     got = eig_beam_chain(*ops)
     torch.cuda.synchronize()
-    assert eig_beam_chain.launches == before + 1
+    assert launches(eig_beam_chain) == before + 1
     want = eig_beam_chain_plain(*ops)
     for name, g, w in zip(NAMES, got, want):
         _assert_equal(g, w, name)
@@ -159,7 +161,7 @@ def _rt_launches():
     from sbdart_tpu_torch.kernels.blocktri_rt import (
         block_thomas_rt, block_thomas_rt_group)
 
-    return block_thomas_rt.launches + block_thomas_rt_group.launches
+    return launches(block_thomas_rt) + launches(block_thomas_rt_group)
 
 
 @pytest.mark.cuda
@@ -174,11 +176,11 @@ def test_blocktri_rt_routes_each_n(cuda_device, n, ncol):
         block_thomas_rt_plain)
 
     ops = _bvp_operands(n, 33, ncol, cuda_device)
-    before = (block_thomas_rt.launches, block_thomas_rt_group.launches)
+    before = (launches(block_thomas_rt), launches(block_thomas_rt_group))
     got = block_thomas_rt(*ops)
     torch.cuda.synchronize()
     one = n in RT_ONE_THREAD_N
-    assert (block_thomas_rt.launches, block_thomas_rt_group.launches) == (
+    assert (launches(block_thomas_rt), launches(block_thomas_rt_group)) == (
         before[0] + one, before[1] + (not one))
     _assert_equal(got, block_thomas_rt_plain(*ops), "xs")
     assert bool(torch.isnan(got).any())
@@ -218,7 +220,7 @@ def _fwd_launches():
     from sbdart_tpu_torch.kernels.blocktri_rt_streamed import (
         block_thomas_rt_fwd, block_thomas_rt_fwd_group)
 
-    return block_thomas_rt_fwd.launches + block_thomas_rt_fwd_group.launches
+    return launches(block_thomas_rt_fwd) + launches(block_thomas_rt_fwd_group)
 
 
 def _bwd_launches():
@@ -227,7 +229,7 @@ def _bwd_launches():
     from sbdart_tpu_torch.kernels.blocktri_rt_streamed import (
         block_thomas_rt_bwd_group)
 
-    return block_thomas_rt_bwd_group.launches
+    return launches(block_thomas_rt_bwd_group)
 
 
 @pytest.mark.cuda
@@ -245,12 +247,12 @@ def test_blocktri_rt_bwd_routes_each_n(cuda_device, n, ncol):
 
     ops = _bvp_operands(n, 33, ncol, cuda_device)
     hist = block_thomas_rt_fwd_plain(*ops)
-    before = block_thomas_rt_bwd_group.launches
+    before = launches(block_thomas_rt_bwd_group)
     got = block_thomas_rt_bwd(*ops[:3], *hist)
     torch.cuda.synchronize()
     assert n not in BWD_ONE_THREAD_N
     assert bwd_entry(n) == "sbdart_blocktri_rt_bwd_group"
-    assert block_thomas_rt_bwd_group.launches == before + 1
+    assert launches(block_thomas_rt_bwd_group) == before + 1
     _assert_equal(got, block_thomas_rt_bwd_plain(*ops[:3], *hist), "xs")
     assert bool(torch.isnan(got).any())
 
@@ -345,10 +347,10 @@ def test_radsrc_kernel_matches_plain(cuda_device, nstr, nlyr, nbc, umu):
 
     src, umu = _radsrc_views(nstr, nlyr, nbc, cuda_device, umu)
     assert not src[5].is_contiguous() and src[5].stride(-1) == 1
-    before = rad_source_lane.launches
+    before = launches(rad_source_lane)
     got = rad_source_lane(*src, umu)
     torch.cuda.synchronize()
-    assert rad_source_lane.launches == before + 1
+    assert launches(rad_source_lane) == before + 1
     _assert_equal(got, rad_source_lane_plain(*src, umu), "j")
 
 
@@ -393,10 +395,10 @@ def test_eig_n2_planar_kernel_matches_plain(cuda_device, lanes):
     ops = tuple(x[None, ..., :lanes].contiguous() for x in (cppl, cpml, r1,
                                                            r2))
     ops += (mu0[..., :lanes].contiguous(),)
-    before = eig_beam_chain_n2.launches
+    before = launches(eig_beam_chain_n2)
     got = eig_beam_chain_n2(*ops, tab)
     torch.cuda.synchronize()
-    assert eig_beam_chain_n2.launches == before + 1
+    assert launches(eig_beam_chain_n2) == before + 1
     for name, g, w in zip(NAMES, got, eig_beam_chain_n2_plain(*ops, tab)):
         _assert_close(g, w, name)
 
@@ -408,6 +410,7 @@ def test_eig_beam_flat_entry_matches_plain(cuda_device, nstr, lanes):
     """B4 on the flat radiance lane axis (nstr modes x 33 layers x 64
     band-columns), its first 6144 and 130 lanes, equal to the plain
     version with a NaN in one lane's C^pp."""
+    from sbdart_tpu_torch import kernels
     from sbdart_tpu_torch.kernels.eig_beam import (
         eig_beam_chain, eig_beam_chain_lane)
 
@@ -417,11 +420,12 @@ def test_eig_beam_flat_entry_matches_plain(cuda_device, nstr, lanes):
                           for x in (cppl, cpml, r1, r2))
     mu0 = mu0[..., :lanes].contiguous()
     cppl = _nan_column(cppl[None], lanes // 2)[0]
-    before = eig_beam_chain.launches
+    before = launches(eig_beam_chain)
     got = eig_beam_chain_lane(cppl, cpml, r1, r2, mu0, tab)
     torch.cuda.synchronize()
-    assert eig_beam_chain.launches == before + 1
-    want = eig_beam_chain_lane(cppl, cpml, r1, r2, mu0, tab, kernels=False)
+    assert launches(eig_beam_chain) == before + 1
+    with kernels.plain():
+        want = eig_beam_chain_lane(cppl, cpml, r1, r2, mu0, tab)
     for name, g, w in zip(NAMES, got, want):
         _assert_equal(g, w, name)
 
@@ -439,10 +443,10 @@ def test_radiance_solve_kernels_match_plain(cuda_device, nstr, brdf):
 
     args, kw = chip_smoke.radiance_problem(130, 9, cuda_device, nstr=nstr,
                                            planck=True, brdf=brdf)
-    before = rad_source_lane.launches
+    before = launches(rad_source_lane)
     got = solve_rte(*args, dtype=torch.float32, **kw)
     want = solve_rte(*args, dtype=torch.float32, eig_method="plain", **kw)
-    assert rad_source_lane.launches == before + 1
+    assert launches(rad_source_lane) == before + 1
     for name in ("uu", "rfldir", "rfldn", "flup", "uavg", "dfdt"):
         g, w = getattr(got, name), getattr(want, name)
         assert torch.isfinite(g).all(), name
@@ -479,7 +483,7 @@ def test_kernels_refuse_float64_on_card(cuda_device):
     from sbdart_tpu_torch.kernels.radsrc import rad_source_lane
 
     ops = _radiance(4, 5, 3, cuda_device)
-    *src, umu = ops["rad_source_lane_plain"][0]
+    *src, umu = ops["rad_source_lane"][0]
     with pytest.raises(TypeError, match="float32"):
         rad_source_lane(*(x.double() for x in src), umu)
     (cppl, cpml, r1, r2, mu0, tab), _ = ops["eig_beam_chain_lane"]
@@ -508,10 +512,10 @@ def test_eig_chain_kernel_matches_plain(cuda_device, nstr, lanes):
     (cppl, cpml, mu, w), _ = _generic(nstr, 64, 9, cuda_device,
                                       onlyfl=False)["eig_chain_lane"]
     ops = tuple(x[None, ..., :lanes].contiguous() for x in (cppl, cpml))
-    before = eig_chain.launches
+    before = launches(eig_chain)
     got = eig_chain(*ops, mu, w)
     torch.cuda.synchronize()
-    assert eig_chain.launches == before + 1
+    assert launches(eig_chain) == before + 1
     for name, g, w_ in zip(NAMES, got, eig_chain_plain(*ops, mu, w)):
         _assert_equal(g, w_, name)
 
@@ -539,10 +543,10 @@ def test_eig_chain_group_matches_plain(cuda_device, nstr, layout, lanes):
         cppl, cpml = (x[None, ..., :lanes].contiguous() for x in (cppl, cpml))
     assert chain_entry(nstr // 2) == "sbdart_eig_chain_group"
     ops = (_nan_column(cppl, cppl.shape[-1] // 2), cpml)
-    before = eig_chain.launches
+    before = launches(eig_chain)
     got = eig_chain(*ops, mu, w)
     torch.cuda.synchronize()
-    assert eig_chain.launches == before + 1
+    assert launches(eig_chain) == before + 1
     for name, g, w_ in zip(NAMES, got, eig_chain_plain(*ops, mu, w)):
         _assert_equal(g, w_, name)
     assert bool(torch.isnan(got[0]).any())
@@ -568,10 +572,10 @@ def test_block_thomas_kernel_matches_plain(cuda_device, nstr, cols):
     keep = torch.isfinite(rhs).all(dim=0).all(dim=0)
     ops = tuple(x[..., keep][..., :cols].contiguous()
                 for x in (*assemble_blocks(gp, gm, ee, refl), rhs))
-    before = block_thomas.launches + block_thomas_group.launches
+    before = launches(block_thomas) + launches(block_thomas_group)
     got = block_thomas(*ops)
     torch.cuda.synchronize()
-    assert block_thomas.launches + block_thomas_group.launches == before + 1
+    assert launches(block_thomas) + launches(block_thomas_group) == before + 1
     _assert_equal(got, block_thomas_plain(*ops), "xs")
 
 
@@ -609,10 +613,10 @@ def test_block_thomas_group_matches_plain(cuda_device, m, ncol):
         block_thomas_group, block_thomas_plain)
 
     ops = _dense_blocks(m, 33, ncol, cuda_device)
-    before = block_thomas_group.launches
+    before = launches(block_thomas_group)
     got = block_thomas_group(*ops)
     torch.cuda.synchronize()
-    assert block_thomas_group.launches == before + 1
+    assert launches(block_thomas_group) == before + 1
     _assert_equal(got, block_thomas_plain(*ops), "xs")
     assert bool(torch.isnan(got).any())
 
@@ -627,11 +631,11 @@ def test_block_thomas_routes_each_m(cuda_device, m):
         block_thomas, block_thomas_group, block_thomas_plain, thomas_entry)
 
     ops = _dense_blocks(m, 33, 130, cuda_device)
-    before = (block_thomas.launches, block_thomas_group.launches)
+    before = (launches(block_thomas), launches(block_thomas_group))
     got = block_thomas(*ops)
     torch.cuda.synchronize()
     one = thomas_entry(m) == "sbdart_block_thomas"
-    assert (block_thomas.launches, block_thomas_group.launches) == (
+    assert (launches(block_thomas), launches(block_thomas_group)) == (
         before[0] + one, before[1] + (not one))
     _assert_equal(got, block_thomas_plain(*ops), "xs")
 
@@ -687,26 +691,26 @@ def test_generic_solve_kernels_match_plain(cuda_device, nstr, kw, kernel,
     module = {"block_thomas_rt": "blocktri_rt", "eig_chain": "eig_chain",
               "eig_beam_chain": "eig_beam", "block_thomas": "blocktri"}[kernel]
     if kernel == "block_thomas_rt":
-        launches = _rt_launches
+        count = _rt_launches
     elif kernel == "block_thomas":
         from sbdart_tpu_torch.kernels.blocktri import (
             block_thomas, block_thomas_group)
 
-        def launches():   # B10's two designs (BT_ONE_THREAD_M)
-            return block_thomas.launches + block_thomas_group.launches
+        def count():   # B10's two designs (BT_ONE_THREAD_M)
+            return launches(block_thomas) + launches(block_thomas_group)
     else:
         wrapper = getattr(importlib.import_module(
             f"sbdart_tpu_torch.kernels.{module}"), kernel)
 
-        def launches():
-            return wrapper.launches
+        def count():
+            return launches(wrapper)
     args, kw = chip_smoke.generic_problem(130, 1, 9, cuda_device, nstr=nstr,
                                           **kw)
-    before = launches()
+    before = count()
     got = solve_rte(*args, dtype=torch.float32, bvp_method=bvp, **kw)
     want = solve_rte(*args, dtype=torch.float32, eig_method="plain",
                      bvp_method=bvp, **kw)
-    assert launches() > before
+    assert count() > before
     for name in ("uu", "rfldir", "rfldn", "flup", "uavg", "dfdt"):
         g, w = getattr(got, name), getattr(want, name)
         if w is None:
@@ -749,9 +753,9 @@ def test_generic_kernels_refuse_float64_and_run_n_above_8(cuda_device, nstr,
 
     args, kw = chip_smoke.generic_problem(13, 1, 5, cuda_device, nstr=nstr,
                                           onlyfl=True)
-    before = block_thomas_rt_group.launches
+    before = launches(block_thomas_rt_group)
     out32 = solve_rte(*args, dtype=torch.float32, **kw)
-    assert block_thomas_rt_group.launches == before + 1
+    assert launches(block_thomas_rt_group) == before + 1
     plain = solve_rte(*args, dtype=torch.float32, eig_method="plain", **kw)
     out64 = solve_rte(*args, dtype=torch.float64, **kw)
     for name in ("rfldn", "flup", "uavg", "dfdt"):
@@ -813,10 +817,10 @@ def test_group_bvp_kernels_match_plain(cuda_device, n, ncol):
     ops = _bvp_operands(n, 65, ncol, cuda_device)
     cs, ys = b6.block_thomas_rt_fwd_group(*ops)
     cs_p, ys_p = b6.block_thomas_rt_fwd_plain(*ops)
-    before = b6.block_thomas_rt_bwd_group.launches
+    before = launches(b6.block_thomas_rt_bwd_group)
     xs = b6.block_thomas_rt_bwd_group(*ops[:3], cs_p, ys_p)
     torch.cuda.synchronize()
-    assert b6.block_thomas_rt_bwd_group.launches == before + 1
+    assert launches(b6.block_thomas_rt_bwd_group) == before + 1
     _assert_equal(cs, cs_p, "cs")
     _assert_equal(ys, ys_p, "ys")
     _assert_equal(xs, b6.block_thomas_rt_bwd_plain(*ops[:3], cs_p, ys_p),
@@ -825,17 +829,17 @@ def test_group_bvp_kernels_match_plain(cuda_device, n, ncol):
     gp, gm, ee, refl, rhs = ops
     ops = (gp[:33].contiguous(), gm[:33].contiguous(), ee[:33].contiguous(),
            refl, rhs[:33].contiguous())
-    before = block_thomas_rt_group.launches
+    before = launches(block_thomas_rt_group)
     got = block_thomas_rt_group(*ops)
     torch.cuda.synchronize()
-    assert block_thomas_rt_group.launches == before + 1
+    assert launches(block_thomas_rt_group) == before + 1
     _assert_equal(got, block_thomas_rt_plain(*ops), "xs (B5)")
     blocks = tuple(x.contiguous() for x in (*assemble_blocks(*ops[:4]),
                                             ops[4]))
-    before = block_thomas_group.launches
+    before = launches(block_thomas_group)
     got = block_thomas_group(*blocks)
     torch.cuda.synchronize()
-    assert block_thomas_group.launches == before + 1
+    assert launches(block_thomas_group) == before + 1
     _assert_equal(got, block_thomas_plain(*blocks), "xs (B10)")
 
 
@@ -954,9 +958,9 @@ def test_solve_rte_f32_runs_nstr128(cuda_device, bvp_method):
                                           onlyfl=True)
     counter = (block_thomas_group if bvp_method == "scan"
                else b6.block_thomas_rt_fwd_group)
-    before = counter.launches
+    before = launches(counter)
     got = solve_rte(*args, dtype=torch.float32, bvp_method=bvp_method, **kw)
-    assert counter.launches == before + 1
+    assert launches(counter) == before + 1
     want = solve_rte(*args, dtype=torch.float32, eig_method="plain",
                      bvp_method=bvp_method, **kw)
     for name in ("rfldir", "rfldn", "flup", "uavg", "dfdt"):
@@ -987,11 +991,12 @@ def test_slab_albedo_transmission_kernels_match_plain(cuda_device):
     umu = np.cos(np.deg2rad([0.0, 45.0, 75.0]))
     kw = dict(nstr=4, umu=umu, albedo=0.1, dtype=torch.float32,
               device=cuda_device)
-    before = (eig_beam_deltam_scatter_n2.launches, block_thomas_rt_n2.launches)
+    before = (launches(eig_beam_deltam_scatter_n2),
+              launches(block_thomas_rt_n2))
     got = slab_albedo_transmission(dtau, ssalb, pmom, **kw)
     torch.cuda.synchronize()
-    assert (eig_beam_deltam_scatter_n2.launches,
-            block_thomas_rt_n2.launches) == tuple(b + 1 for b in before)
+    assert (launches(eig_beam_deltam_scatter_n2),
+            launches(block_thomas_rt_n2)) == tuple(b + 1 for b in before)
     want = slab_albedo_transmission(dtau, ssalb, pmom, eig_method="plain",
                                     **kw)
     for g, w in zip(got, want):
@@ -1027,11 +1032,11 @@ def test_run_batch_kernels_match_plain(cuda_device):
 
     kw = dict(band_chunk=8, col_chunk=32, dtype=torch.float32,
               device=cuda_device)
-    before = (eig_beam_scatter_n2.launches, block_thomas_rt_n2.launches)
+    before = (launches(eig_beam_scatter_n2), launches(block_thomas_rt_n2))
     got = run_batch(Config(**BATCH_CFG), _batch(), **kw)
     nsolve = 2 * -(-51 // 8)            # 2 column chunks x 7 band chunks
-    assert (eig_beam_scatter_n2.launches,
-            block_thomas_rt_n2.launches) == tuple(b + nsolve for b in before)
+    assert (launches(eig_beam_scatter_n2),
+            launches(block_thomas_rt_n2)) == tuple(b + nsolve for b in before)
     want = run_batch(Config(**BATCH_CFG), _batch(), eig_method="plain", **kw)
     for field in ("fdir", "fdn", "fup"):
         assert _rel_err(getattr(got, field), getattr(want, field)) <= 5e-4
@@ -1093,10 +1098,10 @@ def test_run_batch_nccl_world_of_one_resume_equals_first_run(cuda_device,
         mesh = make_mesh(1)
 
         def run():
-            n0 = block_thomas_rt_n2.launches
+            n0 = launches(block_thomas_rt_n2)
             res = run_batch(Config(**BATCH_CFG), _batch(), mesh=mesh,
                             checkpoint_dir=ck, **kw)
-            return res, block_thomas_rt_n2.launches - n0
+            return res, launches(block_thomas_rt_n2) - n0
 
         grouped, n_first = run()
         resumed, n_resume = run()

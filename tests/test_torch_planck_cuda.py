@@ -26,6 +26,8 @@ A band-chunk flux solve with Planck launches the kernel three times
 import pytest
 import torch
 
+from launch_counts import launches
+
 
 @pytest.fixture
 def cuda_device():
@@ -46,12 +48,12 @@ def _same_bits(got, want):
 def _check(lo, hi, t):
     from sbdart_tpu_torch.kernels.planck import planck_band, planck_band_plain
 
-    before = planck_band.launches
+    before = launches(planck_band)
     got = planck_band(lo, hi, t, torch.float32)
     want = planck_band_plain(lo, hi, t, torch.float32)
     torch.cuda.synchronize()
     _same_bits(got, want)
-    return got, planck_band.launches - before
+    return got, launches(planck_band) - before
 
 
 def _c5_chunk(device, **kw):
@@ -156,12 +158,12 @@ def test_python_numbers_join_the_card_and_float64_is_refused(cuda_device):
 
     t = torch.tensor([250.0, 288.0], device=cuda_device)
     _check(800.0, 900.0, t)
-    before = planck_band.launches
+    before = launches(planck_band)
     with pytest.raises(TypeError, match="float32-only"):
         planck_band(800.0, 900.0, t.double())
     with pytest.raises(TypeError, match="float32-only"):
         planck_band(800.0, 900.0, t)        # dtype defaults to float64
-    assert planck_band.launches == before
+    assert launches(planck_band) == before
 
 
 @pytest.mark.cuda
@@ -179,10 +181,10 @@ def test_replay_equals_eager(cuda_device):
                   t=temper.contiguous())
     want = fn(**inputs)
     call(inputs)
-    before = planck_band.launches
+    before = launches(planck_band)
     got = call(inputs)
     torch.cuda.synchronize()
-    assert call.graph is not None and planck_band.launches == before + 1
+    assert call.graph is not None and launches(planck_band) == before + 1
     _same_bits(got, want)
     lo2, hi2, t2, _ = _c5_chunk(cuda_device, ncol=64, seed=5)
     fresh = dict(lo=lo2.contiguous(), hi=hi2.contiguous(),
@@ -204,16 +206,16 @@ def test_flux_solve_launches(cuda_device, name, per_solve):
     from sbdart_tpu_torch.solver.disort import solve_rte
 
     _, _, args, kw = chip_smoke.solve_cell(name, cuda_device, small=True)
-    before = planck_band.launches
+    before = launches(planck_band)
     solve_rte(*args, **kw)
-    assert planck_band.launches == before + per_solve
-    before = planck_band.launches
+    assert launches(planck_band) == before + per_solve
+    before = launches(planck_band)
     solve_rte(*args, **dict(kw, eig_method="plain"))
-    assert planck_band.launches == before
+    assert launches(planck_band) == before
     call, inputs = chip_smoke.captured_solve(args, kw)
-    before = planck_band.launches
+    before = launches(planck_band)
     for _ in range(3):          # warm-up; capture and replay; replay
         call(inputs)
     torch.cuda.synchronize()
     assert call.graph is not None
-    assert planck_band.launches == before + 3 * per_solve
+    assert launches(planck_band) == before + 3 * per_solve

@@ -32,6 +32,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+from launch_counts import launches
 from test_torch_radlane import port, radiance_problem
 
 import sbdart_tpu_torch.solver.radlane as radlane
@@ -106,10 +108,10 @@ def test_radsrc_resonance_lanes_take_the_taylor_branch(monkeypatch):
 
 def test_radsrc_wrapper_takes_plain_version_on_cpu(monkeypatch):
     ops, umu = captured_operands(8, 3, monkeypatch=monkeypatch)
-    before = rad_source_lane.launches
+    before = launches(rad_source_lane)
     assert torch.equal(rad_source_lane(*ops, umu),
                        rad_source_lane_plain(*ops, umu))
-    assert rad_source_lane.launches == before
+    assert launches(rad_source_lane) == before
 
 
 def path_operands(nstr, nbc, monkeypatch):
@@ -166,10 +168,10 @@ def test_radsrc_wrapper_refuses_non_unit_lane_stride(monkeypatch, which):
     ops, umu = captured_operands(8, 3, monkeypatch=monkeypatch)
     wide = torch.zeros(ops[which].shape[:-1] + (2 * ops[which].shape[-1],))
     ops[which] = wide[..., ::2].copy_(ops[which])
-    before = rad_source_lane.launches
+    before = launches(rad_source_lane)
     with pytest.raises(ValueError, match="lane stride 2"):
         rad_source_lane(*ops, umu)
-    assert rad_source_lane.launches == before
+    assert launches(rad_source_lane) == before
 
 
 def test_radsrc_refuses_zero_cosine(monkeypatch):

@@ -144,6 +144,43 @@ def test_solve_rte_routes_agree_and_unaligned_batch_stays_finite():
         solve_rte(*args, nstr=4, **kw, eig_method="fused", device="cpu")
 
 
+@pytest.mark.parametrize("raises", [False, True],
+                         ids=["returns", "raises"])
+@pytest.mark.parametrize("dtype, eig_method, plain", [
+    (torch.float32, "auto", False), (torch.float32, "plain", True),
+    (torch.float64, "auto", True)])
+def test_solve_rte_leaves_no_plain_block_open(monkeypatch, dtype,
+                                              eig_method, plain, raises):
+    """solve_rte runs its body inside kernels.plain() for eig_method
+    "plain" and for float64, and closes the block whether the body
+    returns or raises.  A meta tensor, off the CPU, shows the block: a
+    wrapper would launch its kernel for it outside one."""
+    from sbdart_tpu_torch.kernels import use_kernel
+    from sbdart_tpu_torch.solver import fluxlane
+
+    probe = torch.empty(0, device="meta")
+    seen = []
+    solve = fluxlane.solve_rte_flux_lane
+
+    def spy(*a, **k):
+        seen.append(not use_kernel(probe))
+        if raises:
+            raise RuntimeError("the solve failed")
+        return solve(*a, **k)
+
+    monkeypatch.setattr(fluxlane, "solve_rte_flux_lane", spy)
+    args, kw = flux_problem(3, 4, nk=1, seed=1)
+    if raises:
+        with pytest.raises(RuntimeError, match="the solve failed"):
+            solve_rte(*args, nstr=4, **kw, dtype=dtype,
+                      eig_method=eig_method, device="cpu")
+    else:
+        solve_rte(*args, nstr=4, **kw, dtype=dtype, eig_method=eig_method,
+                  device="cpu")
+    assert seen == [plain]
+    assert use_kernel(probe)
+
+
 def fused_flux_problem(nstr, nlyr, b, planck, seed=0):
     """tests/test_pallas_kernels.py:_fused_flux_problem as NumPy arrays."""
     rng = np.random.default_rng(seed)

@@ -26,6 +26,8 @@ launches once a call, and once a band-chunk flux solve with Planck
 import pytest
 import torch
 
+from launch_counts import launches
+
 
 @pytest.fixture
 def cuda_device():
@@ -49,11 +51,11 @@ def _check(args, tab):
         thermal_particular_scan_plain,
     )
 
-    before = thermal_particular_scan.launches
+    before = launches(thermal_particular_scan)
     got = thermal_particular_scan(*args, tab)
     want = thermal_particular_scan_plain(*args, tab)
     torch.cuda.synchronize()
-    assert thermal_particular_scan.launches == before + 1
+    assert launches(thermal_particular_scan) == before + 1
     assert got[3] is got[2]
     for g, w in zip(got, want):
         _same_bits(g, w)
@@ -161,7 +163,7 @@ def test_refusals(cuda_device):
     from sbdart_tpu_torch.solver.eig import angular_tables
 
     args, tab = _operands(cuda_device, ncol=4, nband=2)
-    before = thermal_particular_scan.launches
+    before = launches(thermal_particular_scan)
     with pytest.raises(TypeError, match="float32-only"):
         thermal_particular_scan(*(x.double() for x in args), tab)
     ssalb, dtau, gl, b_level = args
@@ -174,7 +176,7 @@ def test_refusals(cuda_device):
                                 angular_tables(8, 1))
     with pytest.raises(ValueError, match="ssalb"):
         thermal_particular_scan(ssalb[..., 1:], dtau, gl, b_level, tab)
-    assert thermal_particular_scan.launches == before
+    assert launches(thermal_particular_scan) == before
 
 
 @pytest.mark.cuda
@@ -191,11 +193,11 @@ def test_replay_equals_eager(cuda_device):
     inputs = dict(zip(("ssalb", "dtau", "gl", "b_level"), args))
     want = fn(**inputs)
     call(inputs)
-    before = thermal_particular_scan.launches
+    before = launches(thermal_particular_scan)
     got = call(inputs)
     torch.cuda.synchronize()
     assert call.graph is not None
-    assert thermal_particular_scan.launches == before + 1
+    assert launches(thermal_particular_scan) == before + 1
     for g, w in zip(got, want):
         _same_bits(g, w)
     fresh_args, _ = _operands(cuda_device, ncol=64, nband=4, seed=5)
@@ -218,16 +220,16 @@ def test_flux_solve_launches(cuda_device, name, per_solve):
     from sbdart_tpu_torch.solver.disort import solve_rte
 
     _, _, args, kw = chip_smoke.solve_cell(name, cuda_device, small=True)
-    before = thermal_particular_scan.launches
+    before = launches(thermal_particular_scan)
     solve_rte(*args, **kw)
-    assert thermal_particular_scan.launches == before + per_solve
-    before = thermal_particular_scan.launches
+    assert launches(thermal_particular_scan) == before + per_solve
+    before = launches(thermal_particular_scan)
     solve_rte(*args, **dict(kw, eig_method="plain"))
-    assert thermal_particular_scan.launches == before
+    assert launches(thermal_particular_scan) == before
     call, inputs = chip_smoke.captured_solve(args, kw)
-    before = thermal_particular_scan.launches
+    before = launches(thermal_particular_scan)
     for _ in range(3):          # warm-up; capture and replay; replay
         call(inputs)
     torch.cuda.synchronize()
     assert call.graph is not None
-    assert thermal_particular_scan.launches == before + 3 * per_solve
+    assert launches(thermal_particular_scan) == before + 3 * per_solve

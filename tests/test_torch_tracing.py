@@ -3,8 +3,9 @@ off they record nothing and cost one check; the profiler or
 `recording()` turns them on; parents and job ids nest; a span lies on
 the profiler's clock around the operations it wraps; run_batch records
 its job, its deck build and each column chunk's phases, and a resume
-counts its restored chunks; `counters()` holds the kernel launch
-counts.  run_batch runs tests/test_torch_batch.py's CFG, float64."""
+counts its restored chunks; `counters()` holds the kernel wrappers'
+launch counts, which a CPU call leaves alone.  run_batch runs
+tests/test_torch_batch.py's CFG, float64."""
 
 import itertools
 import logging
@@ -200,21 +201,20 @@ def test_a_resume_counts_restored_chunks_and_solves_only_the_rest(
 
 
 def test_counters_read_the_kernel_launch_counts_live():
-    from sbdart_tpu_torch.ops.graph import launch_counters
+    """A kernel wrapper's launches are the process counter
+    `kernels.<wrapper>.launches`: a wrapper call on CPU tensors runs the
+    plain version and moves none of them, and a count under a name shows
+    in counters() at once."""
+    from sbdart_tpu_torch.kernels.blocktri import block_thomas
 
-    wrappers = launch_counters()
-    assert wrappers
-    keys = {f"kernels.{f.__name__}.launches" for f in wrappers}
-    assert len(keys) == len(wrappers)
-    f = wrappers[0]
-    saved = f.launches
-    try:
-        f.launches = saved + 7
-        got = tracing.counters()
-        assert keys <= set(got)
-        assert got[f"kernels.{f.__name__}.launches"] == saved + 7
-    finally:
-        f.launches = saved
+    rng = np.random.default_rng(0)
+    arrays = [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+              for s in ((3, 4, 4, 5), (3, 4, 4, 5), (3, 4, 4, 5), (3, 4, 5))]
+    arrays[0] = arrays[0] + 8.0 * torch.eye(4)[None, :, :, None]
+    block_thomas(*arrays)
+    assert not [k for k in tracing.counters() if k.startswith("kernels.")]
+    tracing.count("kernels.block_thomas.launches")
+    assert tracing.counters()["kernels.block_thomas.launches"] == 1
     tracing.count("x.y", 2)
     tracing.count("x.y")
     assert tracing.counters()["x.y"] == 3
