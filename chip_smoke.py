@@ -74,7 +74,11 @@ Phases, one JSON line each; the first failure exits non-zero:
               particular solution) at a config 5 band chunk's 1024
               columns x 32 bands (one card) and x 36 (the grid), 3
               k-terms x 32 layers, at 130 columns, and at nstr 8, 12 and
-              16 on 64 columns x 4 bands;
+              16 on 64 columns x 4 bands; P3 (delta-M and the beam
+              attenuations of the nstr=4 thermal front end) at the same
+              two c5 shapes on the stride-0 views of mu0 and has_beam the
+              solve passes it, and at 130 columns with a NaN lane, with
+              and without delta-M;
   4. solve    solve_rte in float32 through the kernels against the plain
               path on the card (max-abs error / max-abs <= 5e-4), with
               band-columns/s for both, and the kernel path's device time
@@ -474,7 +478,8 @@ def general_kernel_operands(prob, nstr):
                                 planck=pk is not None)
     _, mu0, scale_row, mu0_row = fluxlane.beam_rows(kw["fbeam"], kw["umu0"])
     if nstr == 4:
-        front = fluxlane.scatter_operands(fe.dm, scale_row, mu0_row)
+        front = (fluxlane.to_scan(fe.dm.ssalb), fluxlane.to_scan(fe.dm.gl, 2),
+                 scale_row, mu0_row)
         extra = (fe.tab,)
     else:
         front = fluxlane.general_operands(fe.dm, fe.tab, mu0, scale_row)
@@ -648,6 +653,8 @@ def flops_of(kname, args):
         return planck_flops(*args)
     if kname == "thermal_particular_scan":
         return thermal_flops(*args)
+    if kname == "deltam_attenuation":
+        return deltam_flops(*args)
     if kname in ("eig_n2_deltam", "eig_n2_scatter"):
         lanes = args[0].numel()
         return (250 if kname == "eig_n2_deltam" else 230) * lanes
@@ -706,8 +713,9 @@ def bound_of(kname, args, outs):
         if isinstance(t, torch.Tensor) and t.data_ptr() not in seen:
             seen.add(t.data_ptr())
             n = t.numel()
-            if kname in ("planck_band", "thermal_particular_scan"):
-                # P1 and P2 read their views in place: each element once
+            if kname in ("planck_band", "thermal_particular_scan",
+                         "deltam_attenuation"):
+                # P1-P3 read their views in place: each element once
                 n = math.prod(size for size, stride
                               in zip(t.shape, t.stride()) if stride)
             nbytes += n * t.element_size()
@@ -1220,6 +1228,89 @@ def phase_kernels_thermal(device, reps):
         fold(summary, row, main=main)
         rows.append(row)
     emit({"phase": "kernel", "path": "thermal", "k_terms": NK,
+          "layers": NLYR - 1, "bar": KERNEL_BAR, "results": rows})
+    return summary
+
+
+def deltam_operands(device, ncol=C5_COL_CHUNK, nband=C5_BAND_CHUNK, nk=NK,
+                    nlyr=NLYR - 1, seed=0):
+    """P3's operands of a band-chunk solve, as fluxlane.front_end hands
+    them over: optics [C, B, k, L] drawn as flux_problem's (dtau U(0.001,
+    0.6), ssalb U(0.05, 0.999)) with config 5's 5 HG moments a layer
+    [C, B, k, L, 5], and beam_rows' mu0 and has_beam [C, B, k] from a
+    band's beam (none in a fifth of the bands) and a column's zenith
+    cosine U(0.2, 1), each expanded (stride 0) as solve_rte does."""
+    import torch
+
+    from sbdart_tpu_torch.solver.fluxlane import beam_rows
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shape = (ncol, nband, nk, nlyr)
+
+    def u(lo, hi, *size):
+        return lo + (hi - lo) * torch.rand(size, generator=gen,
+                                           device=device)
+
+    dtau = u(0.001, 0.6, *shape)
+    ssalb = u(0.05, 0.999, *shape)
+    pmom = u(0.0, 0.85, *shape)[..., None] ** torch.arange(5, device=device)
+    fbeam = (u(0.0, 1.0, 1, nband, 1) < 0.8).float()
+    umu0 = u(0.2, 1.0, ncol, 1, 1)
+    has_beam, mu0, _, _ = beam_rows(fbeam.expand(shape[:-1]),
+                                    umu0.expand(shape[:-1]))
+    return dtau, ssalb, pmom, mu0, has_beam
+
+
+def deltam_flops(dtau, ssalb, pmom, mu0, has_beam):
+    """P3's operations, counted from its source: per lane-layer 20 for
+    delta-M (the clamps, products, differences and 5 divisions) and 8 for
+    the two running sums and attenuations, an expf and a division counted
+    as one."""
+    import torch
+
+    lanes = torch.broadcast_shapes(dtau.shape, ssalb.shape,
+                                   pmom.shape[:-1]).numel()
+    return lanes * 28
+
+
+def phase_kernels_deltam(device, reps):
+    """P3 against its plain version at both c5 band-chunk shapes (one
+    card's 1024 columns x 32 bands and the grid's 1024 x 36, 3 k-terms x
+    32 layers), at 130 columns with a NaN in one lane's dtau and another's
+    ssalb, and with delta-M off; the one-card shape's times are the
+    kernels summary's."""
+    from sbdart_tpu_torch.kernels.deltam_attenuation import (
+        deltam_attenuation,
+        deltam_attenuation_plain,
+    )
+
+    summary = {}
+    cases = [(C5_COL_CHUNK, C5_BAND_CHUNK, True, True),
+             (C5_COL_CHUNK, 36, True, True), (130, C5_BAND_CHUNK, True, False),
+             (130, C5_BAND_CHUNK, False, False)]
+    rows = []
+    for ncol, nband, deltam, timed in cases:
+        args = deltam_operands(device, ncol=ncol, nband=nband)
+        if ncol == 130:
+            args[0][3, 1, 2, 7] = float("nan")
+            args[1][100, 5, 0, 0] = float("nan")
+
+        def kern(a=args, dm=deltam):
+            return deltam_attenuation(*a, dm)
+
+        def plain(a=args, dm=deltam):
+            return deltam_attenuation_plain(*a, dm)
+
+        row = check_kernel("deltam_attenuation",
+                           ("dtau", "ssalb", "gl", "eb", "eb_u"), kern,
+                           plain, ncol, args)
+        row.update(columns=ncol, bands=nband, deltam=deltam)
+        if timed:
+            time_kernel(row, kern, plain, reps, max(3, reps // 2))
+        main = (ncol, nband) == (C5_COL_CHUNK, C5_BAND_CHUNK)
+        fold(summary, row, main=main)
+        rows.append(row)
+    emit({"phase": "kernel", "path": "deltam", "k_terms": NK,
           "layers": NLYR - 1, "bar": KERNEL_BAR, "results": rows})
     return summary
 
@@ -2897,6 +2988,9 @@ KERNELS = {   # name: (wrapper module, wrapper, source, the TPU kernel,
     "thermal_particular_scan": ("thermal", "thermal_particular_scan",
                                 "thermal_particular.cu", "none (port only)",
                                 "thermal_particular_kernel"),
+    "deltam_attenuation": ("deltam_attenuation", "deltam_attenuation",
+                           "deltam_attenuation.cu", "none (port only)",
+                           "deltam_attenuation_kernel"),
 }
 
 
@@ -3012,7 +3106,8 @@ def main() -> int:
                  phase_kernels_bt_rule(device, reps=5),
                  phase_kernels_far(device),
                  phase_kernels_planck(device, reps=10),
-                 phase_kernels_thermal(device, reps=10)):
+                 phase_kernels_thermal(device, reps=10),
+                 phase_kernels_deltam(device, reps=10)):
         merge(summary, part)
     t_kernels = time.perf_counter() - t0
 
@@ -3028,8 +3123,8 @@ def main() -> int:
              owned=("eig_beam", "blocktri_rt_fwd_group",
                     "blocktri_rt_bwd_group")),
         cell(phase_solve, 10, "nstr4-thermal-33L",
-             owned=("eig_n2_scatter", "blocktri_rt_n2", "planck_band",
-                    "thermal_particular_scan")),
+             owned=("deltam_attenuation", "eig_n2_scatter", "blocktri_rt_n2",
+                    "planck_band", "thermal_particular_scan")),
         cell(phase_solve, 10, "nstr4-flux-65L",
              owned=("eig_n2_deltam", rt_kernel(2))),
         cell(phase_radiance, 10, "nstr4-rad-33L",
@@ -3043,8 +3138,9 @@ def main() -> int:
         cell(phase_radiance, 10, "nstr8-brdf-thermal-33L",
              owned=("eig_beam", rt_kernel(4), "radsrc", "planck_band")),
         (phase_cli, ("eig_n2_deltam", "blocktri_rt_n2")),
-        (phase_cli_config2, ("eig_n2_scatter", "blocktri_rt_n2",
-                             "planck_band", "thermal_particular_scan")),
+        (phase_cli_config2, ("deltam_attenuation", "eig_n2_scatter",
+                             "blocktri_rt_n2", "planck_band",
+                             "thermal_particular_scan")),
         (phase_cli_config3, ("eig_beam", rt_kernel(8), "planck_band",
                              "thermal_particular_scan")),
         (phase_cli_config4, ("eig_beam", rt_kernel(8), "radsrc")),
@@ -3072,13 +3168,13 @@ def main() -> int:
              owned=("block_thomas_group",)),
         (phase_albtrn, ("eig_n2_deltam", "blocktri_rt_n2")),
         (lambda: phase_batch(device),
-         ("eig_n2_scatter", "blocktri_rt_n2", "planck_band",
-          "thermal_particular_scan")),
+         ("deltam_attenuation", "eig_n2_scatter", "blocktri_rt_n2",
+          "planck_band", "thermal_particular_scan")),
         (lambda: phase_batch_solar(device),
          ("eig_n2_deltam", "blocktri_rt_n2")),
         (lambda: phase_distributed(device),
-         ("eig_n2_scatter", "blocktri_rt_n2", "planck_band",
-          "thermal_particular_scan")),
+         ("deltam_attenuation", "eig_n2_scatter", "blocktri_rt_n2",
+          "planck_band", "thermal_particular_scan")),
     ]
     launches = dict.fromkeys(KERNELS, 0)
     walls = []

@@ -32,7 +32,7 @@ SOURCES = ("eig_n2_deltam.cu", "eig_n2_scatter.cu", "eig_n2_planar.cu",
            "blocktri_rt_streamed.cu", "blocktri_rt_streamed_odd.cu",
            "blocktri_rt_streamed_group.cu", "blocktri_rt_bwd.cu",
            "block_thomas.cu", "radsrc.cu", "planck_band.cu",
-           "thermal_particular.cu")
+           "thermal_particular.cu", "deltam_attenuation.cu")
 HEADERS = ("eig_n2_chain.cuh", "eig_chain.cuh", "eig_group.cuh",
            "solve_step.cuh", "group_solve.cuh", "blocktri_rt_streamed.cuh",
            "ring.cuh")
@@ -130,6 +130,10 @@ def library() -> ctypes.CDLL:
     lib.sbdart_thermal_particular.argtypes = (
         [_P] * 5 + [_I, _I, _L, _I, _P, _P, _P])
     lib.sbdart_thermal_particular.restype = _I
+    lib.sbdart_deltam_attenuation.argtypes = (
+        [_P] * 10 + [_I, _I, _L, _I, ctypes.c_float, ctypes.c_float, _I, _P,
+                     _P])
+    lib.sbdart_deltam_attenuation.restype = _I
     lib.sbdart_eig_beam_group.argtypes = [_P] * 10 + [_I] * 3 + [_P, _P]
     lib.sbdart_eig_beam_group.restype = _I
     for name in ("sbdart_eig_chain", "sbdart_eig_chain_group"):

@@ -30,7 +30,7 @@ import torch
 
 from sbdart_tpu_torch import tracing
 from sbdart_tpu_torch.kernels import use_kernel
-from sbdart_tpu_torch.solver.deltam import ssalb_dither
+from sbdart_tpu_torch.solver.deltam import F_MAX, ssalb_dither
 
 
 def _consts(tab, dtype: torch.dtype) -> dict:
@@ -55,7 +55,7 @@ def _consts(tab, dtype: torch.dtype) -> dict:
         cpm=np.array([[par0[l] * ylm0[l, i] * ylm0[l, j] for l in range(4)]
                       for i, j in ij]),
         ylm=ylm0, ylmpar=par0[:, None] * ylm0, par=par0,
-        ss_hi=1.0 - ssalb_dither(dtype), f_hi=1.0 - 1e-6, kk_floor=1e-30,
+        ss_hi=1.0 - ssalb_dither(dtype), f_hi=F_MAX, kk_floor=1e-30,
     )
 
 

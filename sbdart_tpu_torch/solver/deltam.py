@@ -15,12 +15,15 @@ import torch.nn.functional as F
 
 from sbdart_tpu_torch.constants import SSALB_DITHER
 
+F_MAX = 1.0 - 1e-6   # the truncated fraction's clamp
+
 
 class DeltaMResult(NamedTuple):
     dtau: torch.Tensor    # [..., L]      scaled layer optical depth
     ssalb: torch.Tensor   # [..., L]      scaled single-scatter albedo (dithered)
     gl: torch.Tensor      # [..., L, nstr] scaled moments g_l*, l = 0..nstr-1
-    f: torch.Tensor       # [..., L]      truncated fraction
+    f: torch.Tensor | None  # [..., L]    truncated fraction (None where
+                            #               no reader needs it)
     dtau_unscaled: torch.Tensor  # [..., L] original optical depth
 
 
@@ -57,7 +60,7 @@ def apply_deltam(
         f = torch.zeros_like(dtau)
         return DeltaMResult(dtau, ssalb, gl, f, dtau)
 
-    f = torch.clamp(pmom[..., nstr], 0.0, 1.0 - 1e-6)
+    f = torch.clamp(pmom[..., nstr], 0.0, F_MAX)
     wf = ssalb * f
     dtau_s = (1.0 - wf) * dtau
     ssalb_s = ssalb * (1.0 - f) / (1.0 - wf)

@@ -7,7 +7,8 @@ layout [L, *, B].  The front end emits every per-layer quantity:
 
   * nstr=4 without Planck: the B1 kernel (kernels/eig_n2.py) from the raw
     optics (delta-M inside the kernel);
-  * nstr=4 with Planck: delta-M in glue, then the B3 kernel
+  * nstr=4 with Planck: delta-M and the beam attenuations as one kernel
+    (kernels/deltam_attenuation.py), then the B3 kernel
     (kernels/eig_n2_scatter.py) on the scaled optics;
   * nstr 8/12/16: delta-M, the scattering matrices and beam right-hand
     side as einsums, then the B4 kernel (kernels/eig_beam.py).
@@ -19,10 +20,10 @@ shape (kernels/blocktri_rt_streamed.py:solve_bvp): B2
 (at N = 8 from 42 layers on, at N = 2 from 473), B5
 (kernels/blocktri_rt.py) elsewhere.  With Planck, the thermal
 particular solution is one kernel too (kernels/thermal.py), written in
-scan layout.  Plain torch glue does the rest: tau cumsums, beam
-exponentials, the particular solution at layer bounds, the surface and
-top emission, the Lambertian surface operators, the BVP right-hand
-side, boundary intensities, fluxes, uavg and dfdt.
+scan layout.  Plain torch glue does the rest: the tau scans and beam
+exponentials but at nstr=4 with Planck, the particular solution at layer
+bounds, the surface and top emission, the Lambertian surface operators,
+the BVP right-hand side, boundary intensities, fluxes, uavg and dfdt.
 
 Reference map: the DISORT call chain SOLEIG+UPBEAM+UPISOT+SETMTX+SOLVE0+
 FLUXES (disort.f) as fused kernels plus glue.
@@ -39,6 +40,7 @@ import torch.nn.functional as F
 
 from sbdart_tpu_torch.convert import tables_to_torch
 from sbdart_tpu_torch.kernels.blocktri_rt_streamed import solve_bvp
+from sbdart_tpu_torch.kernels.deltam_attenuation import deltam_attenuation
 from sbdart_tpu_torch.kernels.eig_beam import eig_beam_chain
 from sbdart_tpu_torch.kernels.eig_n2 import eig_beam_deltam_scatter_n2
 from sbdart_tpu_torch.kernels.eig_n2_scatter import eig_beam_scatter_n2
@@ -61,6 +63,14 @@ def to_scan(x, nl_axis_from_end=1):
     return torch.movedim(x, -1, 1)                # [L, k, B]
 
 
+def from_scan(x, batch):
+    """to_scan's inverse as a view: [L, B] -> [batch..., L] (or [L, k, B]
+    -> [batch..., L, k])."""
+    if x.dim() == 2:
+        return torch.movedim(x, 0, -1).reshape(tuple(batch) + x.shape[:1])
+    return torch.movedim(x, -1, 0).reshape(tuple(batch) + x.shape[:2])
+
+
 class FrontEnd(NamedTuple):
     """Per-layer quantities in scan layout, from the front-end kernel."""
     tab: AngularTables    # numpy tables (one mode)
@@ -76,7 +86,8 @@ class FrontEnd(NamedTuple):
     eb_u: torch.Tensor    # [L+1, B] unscaled-tau beam attenuation
     mu0: torch.Tensor     # [batch] beam cosine (dithered where no beam)
     has_beam: torch.Tensor  # [batch] bool
-    dm: DeltaMResult | None  # batch-major delta-M (None on the B1 head)
+    dm: DeltaMResult | None  # batch-major delta-M (at nstr=4 views of the
+                             # scan-layout tensors; None on the B1 head)
     dtau_scan: torch.Tensor  # [L, B] scaled optical depth
 
 
@@ -110,12 +121,6 @@ def front_operands(dtauc, ssalb_in, pmom, *, fbeam, umu0, deltam):
     ops = (to_scan(dtauc), to_scan(ssalb_in), to_scan(pm5, 2),
            scale_row, mu0_row)
     return ops, bool(deltam) and pmom.shape[-1] > 4
-
-
-def scatter_operands(dm: DeltaMResult, scale_row, mu0_row):
-    """The B3 kernel's operands: (ssalb [L, B], gl [L, 4, B], scale [1, B],
-    mu0 [1, B]) from the batch-major delta-M result."""
-    return to_scan(dm.ssalb), to_scan(dm.gl, 2), scale_row, mu0_row
 
 
 def general_operands(dm: DeltaMResult, tab, mu0, scale_row):
@@ -176,21 +181,29 @@ def front_end(dtauc, ssalb_in, pmom, *, fbeam, umu0, deltam, nstr=4,
         eb_u = torch.where(has_beam_row, torch.exp(-tau_u_scan / mu0_row),
                            0.0)
     else:
-        dm = apply_deltam(dtauc, ssalb_in, pmom, nstr, deltam)
-
-        def attenuation(dtau):
-            tau = torch.cumsum(dtau, dim=-1)
-            tau = torch.cat([torch.zeros_like(tau[..., :1]), tau], dim=-1)
-            return to_scan(torch.where(has_beam[..., None],
-                                       torch.exp(-tau / mu0[..., None]), 0.0))
-
-        eb = attenuation(dm.dtau)                          # [L+1, Bc]
-        eb_u = attenuation(dm.dtau_unscaled)
-        dtau_scan = to_scan(dm.dtau)
         if n == 2:
-            kk, gp, gm, zp, zm = eig_beam_scatter_n2(
-                *scatter_operands(dm, scale_row, mu0_row), tab)
+            # in scan layout, contiguous; dm holds batch-major views
+            dtau_scan, ssalb, gl, eb, eb_u = deltam_attenuation(
+                dtauc, ssalb_in, pmom, mu0, has_beam, deltam)
+            batch = dtauc.shape[:-1]
+            dm = DeltaMResult(from_scan(dtau_scan, batch),
+                              from_scan(ssalb, batch), from_scan(gl, batch),
+                              None, dtauc)
+            kk, gp, gm, zp, zm = eig_beam_scatter_n2(ssalb, gl, scale_row,
+                                                     mu0_row, tab)
         else:
+            dm = apply_deltam(dtauc, ssalb_in, pmom, nstr, deltam)
+
+            def attenuation(dtau):
+                tau = torch.cumsum(dtau, dim=-1)
+                tau = torch.cat([torch.zeros_like(tau[..., :1]), tau], dim=-1)
+                return to_scan(torch.where(
+                    has_beam[..., None], torch.exp(-tau / mu0[..., None]),
+                    0.0))
+
+            eb = attenuation(dm.dtau)                      # [L+1, Bc]
+            eb_u = attenuation(dm.dtau_unscaled)
+            dtau_scan = to_scan(dm.dtau)
             ops = general_operands(dm, tab, mu0, scale_row)
             kk, gp, gm, zp, zm = eig_beam_chain(*ops, tab.mu, tab.w)
         ee = torch.exp(-kk * dtau_scan[:, None, :])        # [L, N, Bc]
@@ -288,7 +301,6 @@ def solve_rte_flux_lane(dtauc, ssalb_in, pmom, *, fbeam, umu0, fisot,
     """Flux-mode solve, lane-resident.  Inputs batch-major as in
     solve_rte (already broadcast, one dtype and device); `planck` turns
     the thermal source on.  Returns RteOutputs with uu=None."""
-    nlyr = dtauc.shape[-1]
     batch = tuple(dtauc.shape[:-1])
     fe = front_end(dtauc, ssalb_in, pmom, fbeam=fbeam, umu0=umu0,
                    deltam=deltam, nstr=nstr, planck=planck is not None)
@@ -330,10 +342,5 @@ def solve_rte_flux_lane(dtauc, ssalb_in, pmom, *, fbeam, umu0, fisot,
     src = uavg if sysm.b_level is None else uavg - sysm.b_level
     dfdt = 4.0 * math.pi * (1.0 - to_scan(ssl)) * src
 
-    def to_bm(x):
-        return torch.movedim(x, 0, -1).reshape(batch + (nlyr + 1,))
-
-    return RteOutputs(
-        to_bm(rfldir), to_bm(rfldn), to_bm(fup), to_bm(dfdt), to_bm(uavg),
-        None,
-    )
+    return RteOutputs(*(from_scan(x, batch)
+                        for x in (rfldir, rfldn, fup, dfdt, uavg)), None)
